@@ -1,0 +1,632 @@
+"""The fused collapsed-Gibbs sweep: CUDA kernels and their plain versions.
+
+Counterpart of ``basicrta_tpu.sampler.pallas_sweep`` (unpacked layout,
+``pack=1``). Two kernels, built from ``csrc/sweep.cu``:
+
+- :func:`sweep_stats` (K1) — one sweep's sufficient statistics (N_k, T_k)
+  per lane: suffix sums, then the K-1 stage conditional-binomial chain in
+  three multiplicity tiers (inversion + BTRS head, 17-step inversion small
+  tier, inverse-CDF singletons). Replaces ``pallas_sweep.sweep_stats``.
+- :func:`segment` (K2) — ``n_blocks * g`` whole sweeps per launch with the
+  Dirichlet/Gamma conjugate draw inside the kernel, writing the thinned
+  state every g sweeps. Replaces ``pallas_sweep.segment_pallas``.
+
+Random numbers come from the JAX package's counter hash (``_hash_bits``)
+keyed by (seed, lane group, call-site tag, round, element id), with the
+same call-site numbering and element ids the Pallas kernels use in
+interpret mode. The plain versions :func:`sweep_stats_torch` and
+:func:`segment_torch` keep the JAX code's structure and Python loops, so
+the site counter advances exactly as it does there, and they reproduce the
+JAX interpret path draw for draw on the CPU.
+
+Each wrapper runs the plain version for CPU tensors and launches its
+kernel for CUDA tensors (or raises); ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional, Tuple
+
+import torch
+
+from basicrta_torch.config import GibbsConfig
+from basicrta_torch.ops.precise import (exp_f32, gammaln_f32, log_f32,
+                                        pow_smallint, stirling_tail)
+from basicrta_torch.sampler.kernels import SMALL_NMAX, MixtureState
+
+_LANES = 128
+_GROUP = 64         # lanes per group of the reference's layout (hash lane id)
+_INV_FULL = 32      # head-tier inversion depth (n*p <= 10)
+_INV_SMALL = SMALL_NMAX + 1
+_BTRS_ROUNDS = 12
+_BTRS_UNROLL = 4    # btrd_nat_h4: rounds with their own call sites
+_MT_ROUNDS = 8
+_TINY = 1e-30
+_M32 = 0xFFFFFFFF
+_ELEM_MUL = 0x27D4EB2F
+_KMAX = 32          # largest K the CUDA kernels take (local arrays)
+
+
+# --------------------------------------------------------------------- #
+# counter-hash RNG (pallas_sweep._hash_bits / _bits_to_uniform)
+
+def _murmur_fmix(h):
+    """murmur3 finalizer on uint32 values held in int64 (or Python ints):
+    torch has no uint32 shift or add on the CPU, so products are masked."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _M32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def _bits_to_uniform(bits):
+    """uint32 bits (int64) -> U[2^-25, 1) on the 24-bit mantissa grid."""
+    u = (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
+    return torch.clamp_min(u, 1.0 / 33554432.0)
+
+
+def _element_ids(rows, g, cols):
+    """Element id of tile position (row, g, col): the row-major iota
+    combination of ``_hash_bits`` over a (rows, G, 128) tile."""
+    return (((rows * _ELEM_MUL + g) & _M32) * _ELEM_MUL + cols) & _M32
+
+
+def _hash_bits(seed, lane, tag, t, elem):
+    """Counter-hash random bits of (seed, lane, tag, t, element id); every
+    argument is an int or an int64 tensor of uint32 values."""
+    h = (((seed & _M32) * 0x9E3779B9) & _M32) ^ ((lane * 0x85EBCA6B) & _M32)
+    h = _murmur_fmix(h ^ ((((tag * 0xC2B2AE35) & _M32) + t) & _M32))
+    return _murmur_fmix(h ^ _murmur_fmix(elem))
+
+
+class _Rng:
+    """Uniforms for one sweep of every lane, numbered by call site as the
+    Pallas kernel traces them (``pallas_sweep._Rng``). ``lane`` is each
+    lane's group index; uniforms are drawn on precomputed ``fmix(elem)``
+    tiles."""
+
+    def __init__(self, seed: int, lane: torch.Tensor):
+        self.h0 = (((seed & _M32) * 0x9E3779B9) & _M32) ^ (
+            (lane * 0x85EBCA6B) & _M32)
+        self.site = 0
+
+    def reserve(self, n: int) -> int:
+        """Take ``n`` consecutive sites (a loop body traced once)."""
+        first = self.site + 1
+        self.site += n
+        return first
+
+    def uniform(self, felem, t: int = 0, site: Optional[int] = None):
+        if site is None:
+            site = self.reserve(1)
+        h = _murmur_fmix(self.h0 ^ ((((site * 0xC2B2AE35) & _M32) + t)
+                                    & _M32))
+        h = h.view(-1, *([1] * (felem.dim() - 1)))
+        return _bits_to_uniform(_murmur_fmix(h ^ felem))
+
+
+def group_size(B: int, V: int, rows_per_lane: int,
+               group_cap: Optional[int] = None) -> int:
+    """Lanes per group G of the reference's VMEM layout
+    (``pallas_sweep._group_layout``). A lane b draws with lane id b // G
+    and element row b % G — the hash keys its uniforms by both."""
+    SL = V // _LANES
+    g_fit = (12 * 2 ** 20) // max(1, rows_per_lane * SL * _LANES * 4)
+    g_fit = max(8, (g_fit // 8) * 8)
+    cap = int(min(group_cap or _GROUP, g_fit))
+    NG = -(-B // cap)
+    return max(8, (-(-B // NG) + 7) // 8 * 8)
+
+
+def _tier_elems(B: int, G: int, c0: int, c1: int, device):
+    """fmix(element id) over value columns [c0, c1) of every lane, for a
+    tier tile whose first row is column c0's row."""
+    cols = torch.arange(c0, c1, device=device, dtype=torch.int64)
+    b = torch.arange(B, device=device, dtype=torch.int64)[:, None]
+    return _murmur_fmix(_element_ids(((cols - c0) // _LANES)[None, :],
+                                     b % G, (cols % _LANES)[None, :]))
+
+
+def _lane_ids(B: int, G: int, device):
+    return torch.arange(B, device=device, dtype=torch.int64) // G
+
+
+# --------------------------------------------------------------------- #
+# plain versions of the samplers (pallas_sweep counterparts)
+
+def _binom_inversion(u, n, p, depth: int, nmax_bits: int = 0):
+    """CDF-inversion binomial, complete for counts < depth. The walk stops
+    once every uniform is covered: m never moves after that."""
+    q = torch.clamp_min(1.0 - p, _TINY)
+    ratio = p / q
+    if nmax_bits:
+        pmf0 = pow_smallint(q, n, nmax_bits)
+    else:
+        pmf0 = exp_f32(n * log_f32(q))
+    cdf, pmf, m = pmf0, pmf0, torch.zeros_like(u)
+    for t in range(depth):
+        above = u > cdf
+        if not bool(above.any()):
+            break
+        m = m + above.to(torch.float32)
+        pmf = torch.where(n - float(t) > 0,
+                          pmf * ratio * (n - float(t)) / (t + 1.0), 0.0)
+        cdf = cdf + pmf
+    return torch.minimum(m, n)
+
+
+def _binom_btrs(rng: _Rng, felem, n, p, h4: bool):
+    """Hormann BTRS rejection, first accepted of 12 rounds (mode m after).
+
+    ``h4`` is the production ``btrd_nat_h4`` form (BTRD regrouping with
+    native ratio logs; 4 rounds with their own call sites, then a loop body
+    whose two sites the remaining rounds share). Otherwise the lgamma-form
+    accept test of ``mode=True``, one shared pair of sites for all rounds —
+    the form ``pallas_sweep.sweep_stats`` runs."""
+    q = 1.0 - p
+    spq = torch.sqrt(n * p * q)
+    b = 1.15 + 2.53 * spq
+    a = -0.0873 + 0.0248 * b + 0.01 * p
+    c = n * p + 0.5
+    vr = 0.92 - 4.2 / b
+    alpha = (2.83 + 5.1 / b) * spq
+    r = torch.clamp_min(p / q, _TINY)
+    m = torch.floor((n + 1.0) * p)
+    if h4:
+        nm = n - m + 1.0
+        hb = ((m + 0.5) * log_f32(torch.clamp_min((m + 1.0) / (r * nm),
+                                                  _TINY))
+              + stirling_tail(m) + stirling_tail(n - m))
+    else:
+        lpq = log_f32(r)
+        h = gammaln_f32(m + 1.0) + gammaln_f32(n - m + 1.0)
+
+    def round_step(t, site, k_acc, done):
+        u = rng.uniform(felem, t, site) - 0.5
+        v = rng.uniform(felem, t, site + 1)
+        us = 0.5 - torch.abs(u)
+        k = torch.floor((2.0 * a / us + b) * u + c)
+        in_range = (k >= 0) & (k <= n)
+        fast = (us >= 0.07) & (v <= vr)
+        vv = torch.log(torch.clamp_min(v * alpha / (a / (us * us) + b),
+                                       _TINY))
+        if h4:
+            nk = n - k + 1.0
+            slow = vv <= (hb + (n + 1.0)
+                          * torch.log(torch.clamp_min(nm / nk, _TINY))
+                          + (k + 0.5)
+                          * torch.log(torch.clamp_min(nk * r / (k + 1.0),
+                                                      _TINY))
+                          - stirling_tail(k) - stirling_tail(n - k))
+        else:
+            slow = vv <= (h - gammaln_f32(k + 1.0) - gammaln_f32(n - k + 1.0)
+                          + (k - m) * lpq)
+        ok = in_range & (fast | slow)
+        upd = ok & ~done
+        return torch.where(upd, k, k_acc), done | ok
+
+    k_acc, done = m, torch.zeros(n.shape, dtype=torch.bool, device=n.device)
+    unroll = _BTRS_UNROLL if h4 else 0
+    for t in range(unroll):
+        k_acc, done = round_step(t, rng.reserve(2), k_acc, done)
+    loop_site = rng.reserve(2)
+    for t in range(unroll, _BTRS_ROUNDS):
+        if bool(done.all()):
+            break
+        k_acc, done = round_step(t, loop_site, k_acc, done)
+    return k_acc
+
+
+def _binom_full(rng: _Rng, felem, n, p, h4: bool):
+    """General exact binomial: symmetry fold, inversion where n*p <= 10,
+    BTRS elsewhere (both drawn for every element, as in the reference)."""
+    p = torch.clamp(p, 0.0, 1.0)
+    flip = p > 0.5
+    p_eff = torch.where(flip, 1.0 - p, p)
+    small = n * p_eff <= 10.0
+    u = rng.uniform(felem)
+    m_inv = _binom_inversion(u, n, torch.where(small, p_eff, 0.0), _INV_FULL)
+    n_b = torch.where(small, 100.0, n)
+    p_b = torch.where(small, 0.3, p_eff)
+    m_btrs = _binom_btrs(rng, felem, n_b, p_b, h4)
+    m = torch.where(small, m_inv, m_btrs)
+    m = torch.where(flip, n - m, m)
+    m = torch.where((p <= 0.0) | (n <= 0.0), 0.0, m)
+    m = torch.where(p >= 1.0, n, m)
+    return torch.minimum(torch.clamp_min(m, 0.0), n)
+
+
+def _normal_icdf(p):
+    """Acklam's rational approximation of the standard normal inverse CDF
+    (three-region select, as the reference)."""
+    a = (-3.969683028665376e+01, 2.209460984245205e+02,
+         -2.759285104469687e+02, 1.383577518672690e+02,
+         -3.066479806614716e+01, 2.506628277459239e+00)
+    b = (-5.447609879822406e+01, 1.615858368580409e+02,
+         -1.556989798598866e+02, 6.680131188771972e+01,
+         -1.328068155288572e+01)
+    cc = (-7.784894002430293e-03, -3.223964580411365e-01,
+          -2.400758277161838e+00, -2.549732539343734e+00,
+          4.374664141464968e+00, 2.938163982698783e+00)
+    dd = (7.784695709041462e-03, 3.224671290700398e-01,
+          2.445134137142996e+00, 3.754408661907416e+00)
+    plow = 0.02425
+    p = torch.clamp(p, 1.0 / 33554432.0, 1.0 - 1.0 / 33554432.0)
+
+    def tail(q):
+        s = torch.sqrt(-2.0 * log_f32(q))
+        num = ((((cc[0] * s + cc[1]) * s + cc[2]) * s + cc[3]) * s
+               + cc[4]) * s + cc[5]
+        den = (((dd[0] * s + dd[1]) * s + dd[2]) * s + dd[3]) * s + 1.0
+        return num / den
+
+    q = p - 0.5
+    r = q * q
+    num = ((((a[0] * r + a[1]) * r + a[2]) * r + a[3]) * r + a[4]) * r + a[5]
+    den = ((((b[0] * r + b[1]) * r + b[2]) * r + b[3]) * r + b[4]) * r + 1.0
+    central = num * q / den
+    lo = tail(p)
+    hi = -tail(1.0 - p)
+    return torch.where(p < plow, lo,
+                       torch.where(p > 1.0 - plow, hi, central))
+
+
+def _gamma_mt(rng: _Rng, felem, a):
+    """Gamma(a, 1) by Marsaglia-Tsang, first accepted of 8 rounds (one
+    loop body, so one pair of call sites), shapes a < 1 boosted through
+    Gamma(a+1) U^(1/a)."""
+    boost = torch.where(a < 1.0, 1.0, 0.0)
+    a_eff = a + boost
+    d = a_eff - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    v_acc = torch.ones_like(a)
+    done = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+    site = rng.reserve(2)
+    for t in range(_MT_ROUNDS):
+        if bool(done.all()):
+            break
+        x = _normal_icdf(rng.uniform(felem, t, site))
+        u = rng.uniform(felem, t, site + 1)
+        y = 1.0 + c * x
+        v = y * (y * y)                  # lax.integer_pow(y, 3)
+        ok = (v > 0.0) & (log_f32(u) < 0.5 * x * x + d - d * v
+                          + d * log_f32(torch.clamp_min(v, _TINY)))
+        v_acc = torch.where(ok & ~done, v, v_acc)
+        done = done | ok
+    sample = d * v_acc
+    ub = rng.uniform(felem)
+    boosted = sample * exp_f32(log_f32(ub) / torch.clamp_min(a, _TINY))
+    out = sample * (1.0 - boost) + boosted * boost
+    return torch.clamp_min(out, 1e-30)
+
+
+# --------------------------------------------------------------------- #
+# the sweep body (plain)
+
+class _Layout:
+    """Per-lane hash keys and tier column ranges of one bucket."""
+
+    def __init__(self, B: int, V: int, K: int, tiers: Tuple[int, int],
+                 rows_per_lane: int, device):
+        head_rows, small_rows = tiers
+        self.hh = head_rows * _LANES
+        self.hs = small_rows * _LANES
+        self.V = V
+        G = group_size(B, V, rows_per_lane)
+        self.lane = _lane_ids(B, G, device)
+        self.fe_head = _tier_elems(B, G, 0, self.hh, device)
+        self.fe_small = _tier_elems(B, G, self.hh, self.hs, device)
+        self.fe_single = _tier_elems(B, G, self.hs, V, device)
+        # the conjugate draw's (2, G, K) tile
+        i = torch.arange(2, device=device, dtype=torch.int64)[None, :, None]
+        k = torch.arange(K, device=device, dtype=torch.int64)[None, None, :]
+        g = (torch.arange(B, device=device, dtype=torch.int64)
+             % G)[:, None, None]
+        self.fe_gamma = _murmur_fmix(_element_ids(i, g, k))
+
+
+def _suffix_sums(v, w, r, K: int):
+    """[S_0..S_{K-1}], S_k = sum_{j>=k} w_j r_j exp(-r_j v)."""
+    z = [None] * K
+    zsum = torch.zeros_like(v)
+    for k in range(K - 1, -1, -1):
+        zsum = zsum + (w[:, k:k + 1] * r[:, k:k + 1]) * torch.exp(
+            -r[:, k:k + 1] * v)
+        z[k] = zsum
+    return z
+
+
+def _suff_stats(rng: _Rng, lay: _Layout, v, c, w, r, K: int, h4: bool):
+    """Sufficient statistics (N_k, T_k), each (B, K), of one collapsed
+    sweep (``pallas_sweep._suff_stats`` on the (B, V) layout)."""
+    B = v.shape[0]
+    hh, hs, V = lay.hh, lay.hs, lay.V
+    z = _suffix_sums(v, w, r, K)
+    if V > hs:
+        u1 = rng.uniform(lay.fe_single)
+        thresh = u1 * z[0][:, hs:]
+        c_single = c[:, hs:]
+        v_single = v[:, hs:]
+        prev_ind = torch.ones_like(thresh)
+    rem = c[:, :hs]
+    v_hs = v[:, :hs]
+    zeros = torch.zeros((B,), dtype=torch.float32, device=v.device)
+    ns_list, ts_list = [], []
+    for k in range(K - 1):
+        ns_k, ts_k = zeros, zeros
+        if hs > 0:
+            suffix = z[k][:, :hs]
+            nxt = z[k + 1][:, :hs]
+            pcond = torch.clamp((suffix - nxt)
+                                / torch.clamp_min(suffix, _TINY), 0.0, 1.0)
+            parts = []
+            if hh > 0:
+                parts.append(_binom_full(rng, lay.fe_head, rem[:, :hh],
+                                         pcond[:, :hh], h4))
+            if hs > hh:
+                u = rng.uniform(lay.fe_small)
+                parts.append(_binom_inversion(u, rem[:, hh:], pcond[:, hh:],
+                                              _INV_SMALL, nmax_bits=5))
+            draw = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+            ns_k = ns_k + draw.sum(1)
+            ts_k = ts_k + (v_hs * draw).sum(1)
+            rem = rem - draw
+        if V > hs:
+            ind = torch.where(z[k + 1][:, hs:] > thresh, 1.0, 0.0)
+            sdraw = c_single * (prev_ind - ind)
+            prev_ind = ind
+            ns_k = ns_k + sdraw.sum(1)
+            ts_k = ts_k + (v_single * sdraw).sum(1)
+        ns_list.append(ns_k)
+        ts_list.append(ts_k)
+    ns_K, ts_K = zeros, zeros
+    if hs > 0:
+        ns_K = ns_K + rem.sum(1)
+        ts_K = ts_K + (v_hs * rem).sum(1)
+    if V > hs:
+        sdraw = c_single * prev_ind
+        ns_K = ns_K + sdraw.sum(1)
+        ts_K = ts_K + (v_single * sdraw).sum(1)
+    ns_list.append(ns_K)
+    ts_list.append(ts_K)
+    return torch.stack(ns_list, -1), torch.stack(ts_list, -1)
+
+
+def _conjugate(rng: _Rng, lay: _Layout, ns, ts, alpha: float, ga: float,
+               gb: float):
+    """Dirichlet/Gamma conjugate draw from the sweep's statistics: one
+    Marsaglia-Tsang call over the stacked (weight, rate) shapes."""
+    g2 = _gamma_mt(rng, lay.fe_gamma, torch.stack([alpha + ns, ga + ns], 1))
+    w = g2[:, 0] / torch.sum(g2[:, 0], -1, keepdim=True)
+    r = g2[:, 1] / (gb + ts)
+    return w, r
+
+
+def _check(state: MixtureState, values, counts, K: int,
+           tiers: Tuple[int, int]):
+    B, V = values.shape
+    if V % _LANES or V == 0:
+        raise ValueError(f"value width must be a positive multiple of "
+                         f"{_LANES}; got {V}")
+    if counts.shape != values.shape:
+        raise ValueError(f"counts {tuple(counts.shape)} do not match values "
+                         f"{tuple(values.shape)}")
+    if tuple(state.weights.shape) != (B, K) or tuple(
+            state.rates.shape) != (B, K):
+        raise ValueError(f"state must be ({B}, {K}); got "
+                         f"{tuple(state.weights.shape)}")
+    head_rows, small_rows = tiers
+    if not 0 <= head_rows <= small_rows <= V // _LANES:
+        raise ValueError(f"row tiers {tiers} outside 0 <= head <= small <= "
+                         f"{V // _LANES}")
+    for name, x in (("values", values), ("counts", counts),
+                    ("weights", state.weights), ("rates", state.rates)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32; got {x.dtype}")
+
+
+def sweep_stats_torch(seed: int, state: MixtureState, values, counts,
+                      K: int, tiers: Tuple[int, int]):
+    """Plain version of K1: (Ns, Ts), each (B, K), of one sweep.
+
+    Draw for draw the JAX ``sweep_stats`` in interpret mode (its default
+    lgamma-form BTRS). ``tiers`` are row tiers (``pad_tiers_to_rows``)."""
+    _check(state, values, counts, K, tiers)
+    sweep_stats_torch.calls += 1
+    B, V = values.shape
+    lay = _Layout(B, V, K, tiers, K + 3, values.device)
+    rng = _Rng(int(seed), lay.lane)
+    return _suff_stats(rng, lay, values, counts, state.weights,
+                       state.rates, K, h4=False)
+
+
+def segment_torch(seed: int, sweep_offset: int, state: MixtureState,
+                  values, counts, cfg: GibbsConfig, n_blocks: int,
+                  tiers: Tuple[int, int]):
+    """Plain version of K2: ``n_blocks * cfg.g`` sweeps from ``state``.
+
+    Every sweep reseeds from ``seed * 2654435761 + absolute sweep`` (int32
+    wrap-around), so any segmentation of a run gives the same chain.
+    Returns (state, W, R) with W/R (B, n_blocks, K) thinned samples."""
+    K = cfg.ncomp
+    _check(state, values, counts, K, tiers)
+    segment_torch.calls += 1
+    B, V = values.shape
+    lay = _Layout(B, V, K, tiers, K + 12, values.device)
+    w, r = state.weights, state.rates
+    W, R = [], []
+    for i in range(n_blocks * cfg.g):
+        seed_sweep = (int(seed) * 2654435761 + int(sweep_offset) + i) & _M32
+        rng = _Rng(seed_sweep, lay.lane)
+        ns, ts = _suff_stats(rng, lay, values, counts, w, r, K, h4=True)
+        w, r = _conjugate(rng, lay, ns, ts, cfg.alpha_eff, cfg.gamma_shape,
+                          cfg.gamma_rate)
+        if (i + 1) % cfg.g == 0:
+            W.append(w)
+            R.append(r)
+    return MixtureState(w, r), torch.stack(W, 1), torch.stack(R, 1)
+
+
+sweep_stats_torch.calls = 0
+segment_torch.calls = 0
+
+
+# --------------------------------------------------------------------- #
+# the CUDA kernels: build, bind, launch
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
+                    "sweep.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                          "build")
+# -fmad=false: a contracted multiply-add changes Acklam's inverse-normal
+# polynomial (which cancels near its region edges) by up to 1e-3 relative,
+# so contracted gamma draws leave the plain version in ~12% of lanes after
+# one sweep; uncontracted, the kernel does the plain version's arithmetic
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def build_library(verbose: bool = False) -> str:
+    """Compile ``csrc/sweep.cu`` into ``build/`` (keyed by a hash of the
+    source and flags) unless that library exists; returns its path."""
+    with open(_SRC, "rb") as f:
+        src = f.read()
+    key = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = os.path.join(_BUILD_DIR, f"libsweep_{key}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr.strip())
+    os.replace(tmp, out)
+    return out
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library())
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.basicrta_sweep_stats.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                             i, i, i, p]
+        lib.basicrta_sweep_stats.restype = i
+        lib.basicrta_segment.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                         i, i, i, i, i, i, i, f, f, f, p]
+        lib.basicrta_segment.restype = i
+        _lib = lib
+    return _lib
+
+
+def _cuda_inputs(state: MixtureState, values, counts, K: int):
+    """Validate CUDA operands; returns contiguous copies where needed."""
+    for x in (values, counts, state.weights, state.rates):
+        if x.device.type != "cuda" or x.device != values.device:
+            raise ValueError("CUDA kernel operands must all lie on one CUDA "
+                             f"device; got {x.device} and {values.device}")
+    if not 1 <= K <= _KMAX:
+        raise ValueError(f"the CUDA kernels take 1 <= K <= {_KMAX}; got {K}")
+    return (state.weights.contiguous(), state.rates.contiguous(),
+            values.contiguous(), counts.contiguous())
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def sweep_stats(seed: int, state: MixtureState, values, counts, K: int,
+                tiers: Tuple[int, int]):
+    """K1: (Ns, Ts), each (B, K), of one collapsed sweep of every lane.
+
+    CPU tensors run :func:`sweep_stats_torch`; CUDA tensors launch the
+    kernel. ``tiers`` are row tiers (``pad_tiers_to_rows``)."""
+    if values.device.type == "cpu":
+        return sweep_stats_torch(seed, state, values, counts, K, tiers)
+    _check(state, values, counts, K, tiers)
+    w, r, v, c = _cuda_inputs(state, values, counts, K)
+    B, V = v.shape
+    ns = torch.empty((B, K), dtype=torch.float32, device=v.device)
+    ts = torch.empty_like(ns)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = _library().basicrta_sweep_stats(
+        w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
+        ns.data_ptr(), ts.data_ptr(), B, V, K, tiers[0], tiers[1],
+        group_size(B, V, K + 3), _int32(seed), stream)
+    _raise_on(rc, "sweep_stats")
+    sweep_stats.launches += 1
+    return ns, ts
+
+
+def segment(seed: int, sweep_offset: int, state: MixtureState, values,
+            counts, cfg: GibbsConfig, n_blocks: int, tiers: Tuple[int, int]):
+    """K2: advance every lane ``n_blocks * cfg.g`` sweeps in one launch.
+
+    CPU tensors run :func:`segment_torch`; CUDA tensors launch the kernel.
+    Returns (state, W, R) with W/R (B, n_blocks, K) thinned samples."""
+    if values.device.type == "cpu":
+        return segment_torch(seed, sweep_offset, state, values, counts, cfg,
+                             n_blocks, tiers)
+    K = cfg.ncomp
+    _check(state, values, counts, K, tiers)
+    w, r, v, c = _cuda_inputs(state, values, counts, K)
+    B, V = v.shape
+    W = torch.empty((B, n_blocks, K), dtype=torch.float32, device=v.device)
+    R = torch.empty_like(W)
+    wf = torch.empty((B, K), dtype=torch.float32, device=v.device)
+    rf = torch.empty_like(wf)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = _library().basicrta_segment(
+        w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
+        W.data_ptr(), R.data_ptr(), wf.data_ptr(), rf.data_ptr(),
+        B, V, K, tiers[0], tiers[1], group_size(B, V, K + 12),
+        _int32(seed), _int32(sweep_offset), cfg.g, n_blocks,
+        cfg.alpha_eff, cfg.gamma_shape, cfg.gamma_rate, stream)
+    _raise_on(rc, "segment")
+    segment.launches += 1
+    return MixtureState(wf, rf), W, R
+
+
+def _int32(x: int) -> int:
+    """Python int -> the int32 with the same low 32 bits."""
+    x = int(x) & _M32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+sweep_stats.launches = 0
+segment.launches = 0
+
+
+def pad_tiers_to_rows(tiers: Tuple[int, int], V: int) -> Tuple[int, int]:
+    """Round column tier boundaries up to whole 128-column rows (larger
+    tiers are always safe: each sampler is exact on its tier's counts)."""
+    up = lambda x: -(-x // _LANES)  # noqa: E731
+    head = min(up(tiers[0]), V // _LANES)
+    small = min(max(up(tiers[1]), head), V // _LANES)
+    return head, small
