@@ -98,10 +98,22 @@ class ContactEvents:
         return self.durations[self.sel1_resids == resid]
 
     def times_per_residue(self) -> Dict[int, np.ndarray]:
-        out = {}
-        for resid in np.unique(self.sel1_resids):
-            out[int(resid)] = self.times_for_residue(int(resid))
-        return out
+        return self.split_by_residue()
+
+    def split_by_residue(self, resids=None) -> Dict[int, np.ndarray]:
+        """Every sel1 residue's durations (or those of ``resids``) in one
+        pass: a stable sort by residue and one split, so each residue's
+        times keep their table order, as :meth:`times_for_residue` gives
+        them; a residue with no events gets an empty array."""
+        order = np.argsort(self.sel1_resids, kind="stable")
+        keys = self.sel1_resids[order]
+        uniq, starts = np.unique(keys, return_index=True)
+        parts = np.split(self.durations[order], starts[1:])
+        out = {int(r): p for r, p in zip(uniq, parts)}
+        if resids is None:
+            return out
+        empty = self.durations[:0]
+        return {int(r): out.get(int(r), empty) for r in resids}
 
     def save(self, path: str) -> str:
         np.savez_compressed(

@@ -6,6 +6,13 @@
 //   basicrta_segment     -> K2, pallas_sweep.py segment_pallas with pack=1
 //                           (_segment_kernel, _conjugate_in_kernel,
 //                           _gamma_mt with early exit, btrd_nat_h4 BTRS)
+//   basicrta_segment_packed -> K3, pallas_sweep.py _segment_pallas_packed
+//                           (_suff_stats_packed, _suffix_sums_packed,
+//                           _segment_masks): pack logical lanes in one
+//                           128-column physical lane, uniform or mixed
+//                           widths (a slot-id row per physical lane)
+//
+// The samplers, the RNG and the precise f32 ops are in samplers.cuh.
 //
 // What bounds them on this card: not memory. A lane's values and counts
 // (8 bytes a column) are read once per sweep from L2/L1; the work is the
@@ -39,288 +46,18 @@
 //     (never the fast intrinsics). Built with -fmad=false: contraction
 //     moved the inverse-normal polynomial of the gamma draw by up to 1e-3
 //     relative, so the kernel now does the plain version's arithmetic.
+//   * K3 keeps K2's per-column body and one block per physical lane, so a
+//     row's expensive binomial draws serve up to `pack` small residues;
+//     only the statistics split per slot (see segment_packed_kernel).
 //
 // Entry points have a plain C interface (ctypes) and return
 // cudaGetLastError() after the launch.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "samplers.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;          // threads per block = columns per row
-constexpr int kWarps = kLanes / 32;
-constexpr int kKMax = 32;
-constexpr int kInvFull = 32;
-constexpr int kInvSmall = 17;        // SMALL_NMAX + 1
-constexpr int kBtrsRounds = 12;
-constexpr int kBtrsUnroll = 4;
-constexpr int kMtRounds = 8;
-constexpr float kTiny = 1e-30f;
-constexpr uint32_t kElemMul = 0x27D4EB2Fu;
-
-// ------------------------------------------------------------------ RNG
-
-__device__ __forceinline__ uint32_t fmix(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ uint32_t elem_id(uint32_t row, uint32_t g,
-                                            uint32_t col) {
-  return (row * kElemMul + g) * kElemMul + col;
-}
-
-struct Rng {
-  uint32_t h0;  // seed * 0x9E3779B9 ^ lane * 0x85EBCA6B
-  __device__ __forceinline__ float uniform(int site, int t,
-                                           uint32_t fe) const {
-    uint32_t h = fmix(h0 ^ (uint32_t(site) * 0xC2B2AE35u + uint32_t(t)));
-    uint32_t bits = fmix(h ^ fe);
-    float u = float(int(bits >> 8)) * float(1.0 / 16777216.0);
-    return fmaxf(u, float(1.0 / 33554432.0));
-  }
-};
-
-__device__ __forceinline__ Rng make_rng(uint32_t seed, uint32_t lane) {
-  return Rng{(seed * 0x9E3779B9u) ^ (lane * 0x85EBCA6Bu)};
-}
-
-// ------------------------------------------------------- precise f32 ops
-
-__device__ __forceinline__ float log_f32(float x) {
-  int bits = __float_as_int(x);
-  int e = ((bits >> 23) & 0xFF) - 127;
-  float m = __int_as_float((bits & 0x007FFFFF) | 0x3F800000);
-  if (m > 1.4142135f) {
-    m = m * 0.5f;
-    e += 1;
-  }
-  float s = (m - 1.0f) / (m + 1.0f);
-  float s2 = s * s;
-  float p = 2.0f * s *
-            (1.0f + s2 * (float(1.0 / 3.0) +
-                          s2 * (float(1.0 / 5.0) +
-                                s2 * (float(1.0 / 7.0) + s2 / 9.0f))));
-  return p + float(e) * float(0.6931471805599453);
-}
-
-__device__ __forceinline__ float exp_f32(float x) {
-  x = fminf(fmaxf(x, -87.0f), 88.0f);
-  float kf = rintf(x * float(1.4426950408889634));  // half to even
-  float r = (x - kf * 0.693359375f) - kf * float(-2.12194440e-4);
-  float p = 1.0f + r * (1.0f + r * (0.5f + r * (float(1.0 / 6.0) +
-            r * (float(1.0 / 24.0) + r * (float(1.0 / 120.0) +
-            r * (float(1.0 / 720.0) + r / 5040.0f))))));
-  float scale = __int_as_float((int(kf) + 127) << 23);
-  return p * scale;
-}
-
-__device__ __forceinline__ float gammaln_f32(float x) {
-  bool small = x < 6.0f;
-  float xb = small ? x : 1.0f;
-  float prod = xb * (xb + 1.0f) * (xb + 2.0f) * (xb + 3.0f) * (xb + 4.0f) *
-               (xb + 5.0f);
-  float xs = small ? x + 6.0f : x;
-  float inv = 1.0f / xs;
-  float inv2 = inv * inv;
-  float series = inv * (float(1.0 / 12.0) -
-                        inv2 * (float(1.0 / 360.0) - inv2 / 1260.0f));
-  float lg = (xs - 0.5f) * log_f32(xs) - xs + float(0.9189385332046727) +
-             series;
-  return lg - (small ? logf(prod) : 0.0f);
-}
-
-__constant__ float kStTable[10] = {
-    float(0.08106146679532726), float(0.04134069595540929),
-    float(0.02767792568499834), float(0.02079067210376509),
-    float(0.01664469118982119), float(0.01387612882307075),
-    float(0.01189670994589177), float(0.01041126526197209),
-    float(0.00925546218271273), float(0.00833056343336287)};
-
-__device__ __forceinline__ float stirling_tail(float x) {
-  float w = x + 1.0f;
-  float inv = 1.0f / w;
-  float inv2 = inv * inv;
-  float s = inv * (float(1.0 / 12.0) -
-                   inv2 * (float(1.0 / 360.0) - inv2 / 1260.0f));
-  for (int i = 9; i >= 0; --i) {
-    if (x < float(i) + 0.5f) s = kStTable[i];
-  }
-  return s;
-}
-
-__device__ __forceinline__ float pow_smallint5(float q, float n) {
-  float result = 1.0f, base = q, e = n;
-  for (int i = 0; i < 5; ++i) {
-    float half = floorf(e * 0.5f);
-    float odd = e - 2.0f * half;
-    result = result * (odd > 0.5f ? base : 1.0f);
-    base = base * base;
-    e = half;
-  }
-  return result;
-}
-
-// ---------------------------------------------------------------- samplers
-
-template <bool kSmallInt>
-__device__ __forceinline__ float binom_inversion(float u, float n, float p,
-                                                 int depth) {
-  float q = fmaxf(1.0f - p, kTiny);
-  float ratio = p / q;
-  float pmf = kSmallInt ? pow_smallint5(q, n) : exp_f32(n * log_f32(q));
-  float cdf = pmf;
-  float m = 0.0f;
-  // m only grows while u > cdf and cdf never decreases: stop at the
-  // first covered step
-  for (int t = 0; t < depth && u > cdf; ++t) {
-    m += 1.0f;
-    float tf = float(t);
-    pmf = (n - tf > 0.0f) ? pmf * ratio * (n - tf) / (tf + 1.0f) : 0.0f;
-    cdf = cdf + pmf;
-  }
-  return fminf(m, n);
-}
-
-// Requires n*p > 10, p <= 0.5. kH4: the btrd_nat_h4 accept test and site
-// layout (rounds 0-3 own two sites each, later rounds share the loop
-// body's two); otherwise the lgamma form with one shared pair of sites.
-template <bool kH4>
-__device__ float binom_btrs(const Rng& rng, int site0, uint32_t fe, float n,
-                            float p) {
-  float q = 1.0f - p;
-  float spq = sqrtf(n * p * q);
-  float b = 1.15f + 2.53f * spq;
-  float a = -0.0873f + 0.0248f * b + 0.01f * p;
-  float c = n * p + 0.5f;
-  float vr = 0.92f - 4.2f / b;
-  float alpha = (2.83f + 5.1f / b) * spq;
-  float r = fmaxf(p / q, kTiny);
-  float m = floorf((n + 1.0f) * p);
-  float nm = n - m + 1.0f;
-  float hb = 0.0f, h = 0.0f, lpq = 0.0f;
-  if (kH4) {
-    hb = (m + 0.5f) * log_f32(fmaxf((m + 1.0f) / (r * nm), kTiny)) +
-         stirling_tail(m) + stirling_tail(n - m);
-  } else {
-    lpq = log_f32(r);
-    h = gammaln_f32(m + 1.0f) + gammaln_f32(n - m + 1.0f);
-  }
-  for (int t = 0; t < kBtrsRounds; ++t) {
-    int site = kH4 ? (t < kBtrsUnroll ? site0 + 2 * t
-                                      : site0 + 2 * kBtrsUnroll)
-                   : site0;
-    float u = rng.uniform(site, t, fe) - 0.5f;
-    float v = rng.uniform(site + 1, t, fe);
-    float us = 0.5f - fabsf(u);
-    float k = floorf((2.0f * a / us + b) * u + c);
-    if (!(k >= 0.0f && k <= n)) continue;
-    if (us >= 0.07f && v <= vr) return k;
-    float vv = logf(fmaxf(v * alpha / (a / (us * us) + b), kTiny));
-    bool slow;
-    if (kH4) {
-      float nk = n - k + 1.0f;
-      slow = vv <= (hb + (n + 1.0f) * logf(fmaxf(nm / nk, kTiny)) +
-                    (k + 0.5f) * logf(fmaxf(nk * r / (k + 1.0f), kTiny)) -
-                    stirling_tail(k) - stirling_tail(n - k));
-    } else {
-      slow = vv <= (h - gammaln_f32(k + 1.0f) - gammaln_f32(n - k + 1.0f) +
-                    (k - m) * lpq);
-    }
-    if (slow) return k;
-  }
-  return m;
-}
-
-// Sites of one stage: the inversion uniform, then BTRS's.
-template <bool kH4>
-__device__ __forceinline__ float binom_full(const Rng& rng, int stage_site,
-                                            uint32_t fe, float n, float p) {
-  p = fminf(fmaxf(p, 0.0f), 1.0f);
-  if (p <= 0.0f || n <= 0.0f) return 0.0f;
-  if (p >= 1.0f) return n;
-  bool flip = p > 0.5f;
-  float pe = flip ? 1.0f - p : p;
-  float m;
-  if (n * pe <= 10.0f) {
-    m = binom_inversion<false>(rng.uniform(stage_site + 1, 0, fe), n, pe,
-                               kInvFull);
-  } else {
-    m = binom_btrs<kH4>(rng, stage_site + 2, fe, n, pe);
-  }
-  m = flip ? n - m : m;
-  return fminf(fmaxf(m, 0.0f), n);
-}
-
-__device__ float normal_icdf(float p) {
-  const float a0 = float(-3.969683028665376e+01),
-              a1 = float(2.209460984245205e+02),
-              a2 = float(-2.759285104469687e+02),
-              a3 = float(1.383577518672690e+02),
-              a4 = float(-3.066479806614716e+01),
-              a5 = float(2.506628277459239e+00);
-  const float b0 = float(-5.447609879822406e+01),
-              b1 = float(1.615858368580409e+02),
-              b2 = float(-1.556989798598866e+02),
-              b3 = float(6.680131188771972e+01),
-              b4 = float(-1.328068155288572e+01);
-  const float c0 = float(-7.784894002430293e-03),
-              c1 = float(-3.223964580411365e-01),
-              c2 = float(-2.400758277161838e+00),
-              c3 = float(-2.549732539343734e+00),
-              c4 = float(4.374664141464968e+00),
-              c5 = float(2.938163982698783e+00);
-  const float d0 = float(7.784695709041462e-03),
-              d1 = float(3.224671290700398e-01),
-              d2 = float(2.445134137142996e+00),
-              d3 = float(3.754408661907416e+00);
-  const float plow = float(0.02425), phigh = float(1.0 - 0.02425);
-  p = fminf(fmaxf(p, float(1.0 / 33554432.0)),
-            float(1.0 - 1.0 / 33554432.0));
-  if (p < plow || p > phigh) {
-    float q = p < plow ? p : 1.0f - p;
-    float s = sqrtf(-2.0f * log_f32(q));
-    float num = ((((c0 * s + c1) * s + c2) * s + c3) * s + c4) * s + c5;
-    float den = (((d0 * s + d1) * s + d2) * s + d3) * s + 1.0f;
-    return p < plow ? num / den : -(num / den);
-  }
-  float q = p - 0.5f;
-  float r = q * q;
-  float num = ((((a0 * r + a1) * r + a2) * r + a3) * r + a4) * r + a5;
-  float den = ((((b0 * r + b1) * r + b2) * r + b3) * r + b4) * r + 1.0f;
-  return num * q / den;
-}
-
-// Gamma(a, 1): Marsaglia-Tsang rounds on sites (site0, site0+1), the a < 1
-// boost uniform on site0+2.
-__device__ float gamma_mt(const Rng& rng, int site0, uint32_t fe, float a) {
-  float boost = a < 1.0f ? 1.0f : 0.0f;
-  float a_eff = a + boost;
-  float d = a_eff - float(1.0 / 3.0);
-  float c = 1.0f / sqrtf(9.0f * d);
-  float v_acc = 1.0f;
-  for (int t = 0; t < kMtRounds; ++t) {
-    float x = normal_icdf(rng.uniform(site0, t, fe));
-    float u = rng.uniform(site0 + 1, t, fe);
-    float y = 1.0f + c * x;
-    float v = y * (y * y);
-    if (v > 0.0f &&
-        log_f32(u) < 0.5f * x * x + d - d * v + d * log_f32(fmaxf(v, kTiny))) {
-      v_acc = v;
-      break;
-    }
-  }
-  float sample = d * v_acc;
-  float ub = rng.uniform(site0 + 2, 0, fe);
-  float boosted = sample * exp_f32(log_f32(ub) / fmaxf(a, kTiny));
-  float out = sample * (1.0f - boost) + boosted * boost;
-  return fmaxf(out, 1e-30f);
-}
+using namespace basicrta;
 
 // ----------------------------------------------------------- sweep body
 
@@ -514,6 +251,103 @@ segment_kernel(Bucket bk, const float* w0, const float* r0, float* W,
   }
 }
 
+// ------------------------------------------------------- packed lanes (K3)
+
+constexpr int kPartStride = kLanes + 1;  // padded rows: no bank conflicts
+
+// shared memory: w, r, wr (pack*K each), tot (2*pack*K: N then T),
+// g2 (2*pack*K), part (2K rows of kPartStride), slot ids (kLanes ints)
+__host__ __device__ inline int packed_smem_floats(int K, int pack) {
+  return 7 * pack * K + 2 * K * kPartStride + kLanes;
+}
+
+// One block per physical lane b, thread t owns column t. The lane holds
+// `pack` logical lanes (slots), each with its own (w, r) chain; column t
+// belongs to slot sid[t] (columns of no member carry slot 0 and count 0,
+// so they add nothing). The state is slot-ordered: logical lane
+// b * pack + s. Per sweep:
+//   * the suffix sums and the binomial chain are K2's per-column code,
+//     each thread reading its own slot's (w r, r) from shared memory;
+//   * (N_k, T_k) per slot in a fixed order, no atomics: each thread's
+//     row sums (its partials), then one thread per (N|T, slot, k) adds
+//     that slot's columns in column order;
+//   * the conjugate draw: 2 * pack * K Marsaglia-Tsang gammas looped over
+//     the block's threads, element ids of the reference's (2, pack, G, K)
+//     tile.
+__global__ void __launch_bounds__(kLanes)
+segment_packed_kernel(Bucket bk, int pack, const int* slot_ids,
+                      const float* w0, const float* r0, float* W, float* R,
+                      float* wf, float* rf, int seed, int offset, int g,
+                      int n_blocks, float alpha, float ga, float gb) {
+  extern __shared__ float sm[];
+  const int K = bk.K, b = blockIdx.x, tid = threadIdx.x, PK = pack * K;
+  float *w = sm, *r = w + PK, *wr = r + PK, *tot = wr + PK,
+        *g2 = tot + 2 * PK, *part = g2 + 2 * PK;
+  int* sid = reinterpret_cast<int*>(part + 2 * K * kPartStride);
+  sid[tid] = slot_ids[size_t(b) * kLanes + tid];
+  for (int j = tid; j < PK; j += kLanes) {
+    w[j] = w0[size_t(b) * PK + j];
+    r[j] = r0[size_t(b) * PK + j];
+  }
+  const int own = sid[tid];
+  const Sites sites(bk, true);
+  const uint32_t lane = uint32_t(b / bk.G), gi = uint32_t(b % bk.G);
+  float Np[kKMax], Tp[kKMax];
+  const int n_sweeps = n_blocks * g;
+  for (int i = 0; i < n_sweeps; ++i) {
+    const uint32_t seed_sweep =
+        uint32_t(seed) * 2654435761u + uint32_t(offset + i);
+    const Rng rng = make_rng(seed_sweep, lane);
+    for (int j = tid; j < PK; j += kLanes) wr[j] = w[j] * r[j];
+    __syncthreads();
+    suff_stats<true>(bk, b, rng, sites, wr + own * K, r + own * K, Np, Tp);
+    for (int k = 0; k < K; ++k) {
+      part[k * kPartStride + tid] = Np[k];
+      part[(K + k) * kPartStride + tid] = Tp[k];
+    }
+    __syncthreads();
+    for (int j = tid; j < 2 * PK; j += kLanes) {
+      // j = which * PK + s * K + k, which 0 for N and 1 for T
+      const int which = j / PK, s = (j / K) % pack, k = j % K;
+      const float* row = part + (which * K + k) * kPartStride;
+      float acc = 0.0f;
+      for (int c = 0; c < kLanes; ++c) {
+        if (sid[c] == s) acc += row[c];
+      }
+      tot[j] = acc;
+    }
+    __syncthreads();
+    for (int j = tid; j < 2 * PK; j += kLanes) {
+      // the (2, pack, G, K) tile: row 0 weights, row 1 rates
+      const int row = j / PK, s = (j / K) % pack, k = j % K;
+      const float a = (row == 0 ? alpha : ga) + tot[s * K + k];
+      const uint32_t fe =
+          fmix(elem_id(uint32_t(row) * kElemMul + uint32_t(s), gi, k));
+      g2[j] = gamma_mt(rng, sites.gamma(K), fe, a);
+    }
+    __syncthreads();
+    for (int j = tid; j < PK; j += kLanes) {
+      const int s = j / K;
+      float sum = 0.0f;
+      for (int q = 0; q < K; ++q) sum += g2[s * K + q];
+      w[j] = g2[j] / sum;
+      r[j] = g2[PK + j] / (gb + tot[PK + j]);
+      if ((i + 1) % g == 0) {
+        // logical lane b * pack + s, block (i + 1) / g - 1
+        const size_t o =
+            (size_t(b * pack + s) * n_blocks + (i + 1) / g - 1) * K + j % K;
+        W[o] = w[j];
+        R[o] = r[j];
+      }
+    }
+    __syncthreads();
+  }
+  for (int j = tid; j < PK; j += kLanes) {
+    wf[size_t(b) * PK + j] = w[j];
+    rf[size_t(b) * PK + j] = r[j];
+  }
+}
+
 }  // namespace
 
 extern "C" int basicrta_sweep_stats(const float* w0, const float* r0,
@@ -539,5 +373,22 @@ extern "C" int basicrta_segment(const float* w0, const float* r0,
   size_t smem = sizeof(float) * smem_floats(K);
   segment_kernel<<<B, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       bk, w0, r0, W, R, wf, rf, seed, offset, g, n_blocks, alpha, ga, gb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bph physical lanes of V = SL * 128 columns; state and outputs are
+// slot-ordered over pack * Bph logical lanes.
+extern "C" int basicrta_segment_packed(
+    const float* w0, const float* r0, const float* values,
+    const float* counts, const int* slot_ids, float* W, float* R, float* wf,
+    float* rf, int Bph, int V, int K, int pack, int head_rows,
+    int small_rows, int G, int seed, int offset, int g, int n_blocks,
+    float alpha, float ga, float gb, void* stream) {
+  Bucket bk{values, counts, Bph, V, K, head_rows, small_rows, G};
+  size_t smem = sizeof(float) * packed_smem_floats(K, pack);
+  segment_packed_kernel<<<Bph, kLanes, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      bk, pack, slot_ids, w0, r0, W, R, wf, rf, seed, offset, g, n_blocks,
+      alpha, ga, gb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,12 +35,25 @@ def to_state(state, device=None) -> MixtureState:
 
 
 def from_jax_batch(batch) -> ResidueBatch:
-    """The port's ResidueBatch from an unpacked JAX ResidueBatch (the
-    ``ladder='pow2'`` layout: ``pack == 1``, no mixed-width bounds)."""
-    if getattr(batch, "pack", 1) != 1 or getattr(batch, "bounds",
-                                                 None) is not None:
-        raise ValueError("only unpacked buckets (pack=1) have a "
-                         "counterpart in the port")
+    """The port's ResidueBatch from a JAX ResidueBatch of any layout: the
+    pow2 ladder, uniform packing (``pack > 1``) or k-way mixed widths
+    (``bounds``, ``phys_rows``). A packed bucket whose widths do not name
+    one slot per member, or do not match ``pack``, is refused."""
+    pack = int(getattr(batch, "pack", 1))
+    bounds = getattr(batch, "bounds", None)
+    phys_rows = int(getattr(batch, "phys_rows", 0))
+    if bounds is not None:
+        bounds = np.asarray(bounds, np.int64)
+        if (bounds.ndim != 2 or bounds.shape[1] != pack or pack < 2
+                or int((bounds > 0).sum()) != len(batch.names)
+                or phys_rows < 1):
+            raise ValueError(
+                f"malformed mixed-width bucket: bounds "
+                f"{bounds.shape} for pack {pack}, {len(batch.names)} "
+                f"members, phys_rows {phys_rows}")
+    elif pack < 1 or 128 % pack:
+        raise ValueError(f"malformed packed bucket: pack {pack}")
     return ResidueBatch(list(batch.names), np.asarray(batch.values),
                         np.asarray(batch.counts), np.asarray(batch.n_events),
-                        tuple(batch.tiers))
+                        tuple(batch.tiers), pack=pack, bounds=bounds,
+                        phys_rows=phys_rows)

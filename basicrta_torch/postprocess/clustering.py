@@ -91,40 +91,55 @@ def _label_matrix(inds, labels, shape) -> np.ndarray:
     return L
 
 
-def accumulate_cluster_votes(generator: torch.Generator, weights_post,
-                             rates_post, values, counts, label_matrix,
-                             n_clusters: int,
-                             chunk_elems: int = 1 << 22) -> np.ndarray:
-    """Per-unique-value cluster vote totals, (V, n_clusters).
+VOTE_CHUNK = 1 << 22    # (sample, value, component) entries per chunk
+
+
+def votes_bucket(W, R, values, counts, labels, generators,
+                 chunk_elems: int = VOTE_CHUNK) -> torch.Tensor:
+    """Per-value cluster votes of a batch of residues, (B, V, K).
 
     For every saved sample, regenerate the per-value component counts
     ``m_v ~ Multinomial(c_v, z_v(w, r))`` and add them to the cluster of
-    each above-cutoff component (gibbs.py:259-272); samples run in chunks
-    of at most ``chunk_elems`` (sample, value, component) entries."""
-    dev = generator.device
-    v = torch.as_tensor(np.asarray(values), dtype=torch.float32, device=dev)
-    c = torch.as_tensor(np.asarray(counts), dtype=torch.float32, device=dev)
-    W = torch.as_tensor(np.asarray(weights_post), dtype=torch.float32,
-                        device=dev)
-    R = torch.as_tensor(np.asarray(rates_post), dtype=torch.float32,
-                        device=dev)
-    L = torch.as_tensor(np.asarray(label_matrix), dtype=torch.int64,
-                        device=dev)
-    S, K = W.shape
-    V = v.shape[0]
-    votes = torch.zeros((V, n_clusters), dtype=torch.float32, device=dev)
+    each labelled component (gibbs.py:259-272). W/R (B, S, K) samples,
+    values/counts (B, V) (padding carries count 0), labels (B, S, K) ints
+    (-1 votes for no cluster), one generator per residue. The one-hot is
+    K wide, the chain's own component count, so no label < K loses its
+    votes. Each residue's samples run in chunks of at most
+    ``chunk_elems`` (sample, value, component) entries, a size set by its
+    own shape only."""
+    B, S, K = W.shape
+    V = values.shape[1]
     step = max(1, chunk_elems // max(1, V * K))
+    votes = torch.zeros((B, V, K), dtype=torch.float32, device=W.device)
     for s0 in range(0, S, step):
-        w, r, lab = W[s0:s0 + step], R[s0:s0 + step], L[s0:s0 + step]
-        logz = (torch.log(w)[:, None, :] + torch.log(r)[:, None, :]
-                - v[None, :, None] * r[:, None, :])
-        m = multinomial(c.expand(w.shape[0], V), torch.softmax(logz, -1),
-                        generator)                              # (s, V, K)
-        # label -1 (below cutoff) votes for no cluster
-        onehot = torch.nn.functional.one_hot(lab + 1, n_clusters + 1)[
-            ..., 1:].to(torch.float32)                          # (s, K, C)
-        votes += torch.einsum("svk,skc->vc", m, onehot)
-    return votes.cpu().numpy()
+        w, r = W[:, s0:s0 + step], R[:, s0:s0 + step]
+        n = w.shape[1]
+        logz = (torch.log(w)[:, :, None, :] + torch.log(r)[:, :, None, :]
+                - values[:, None, :, None] * r[:, :, None, :])
+        m = multinomial(counts[:, None, :].expand(B, n, V),
+                        torch.softmax(logz, -1), generators)
+        onehot = torch.nn.functional.one_hot(
+            labels[:, s0:s0 + step] + 1, K + 1)[..., 1:].to(torch.float32)
+        votes += torch.einsum("bsvk,bskc->bvc", m, onehot)
+    return votes
+
+
+def accumulate_cluster_votes(generator: torch.Generator, weights_post,
+                             rates_post, values, counts, label_matrix,
+                             n_clusters: int,
+                             chunk_elems: int = VOTE_CHUNK) -> np.ndarray:
+    """One residue's per-unique-value cluster votes, (V, n_clusters)
+    (:func:`votes_bucket` on a batch of one)."""
+    dev = generator.device
+    as_t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,  # noqa
+                                         device=dev)[None]
+    votes = votes_bucket(as_t(weights_post, torch.float32),
+                         as_t(rates_post, torch.float32),
+                         as_t(values, torch.float32),
+                         as_t(counts, torch.float32),
+                         as_t(label_matrix, torch.int64), [generator],
+                         chunk_elems)
+    return votes[0, :, :n_clusters].cpu().numpy()
 
 
 def sort_labels_by_rate(result: ClusterResult,

@@ -2,9 +2,9 @@
 
 Port of ``basicrta_tpu.protein.driver`` (reference gibbs.py:20-88 and
 cluster.py:15-192): ``ParallelGibbs`` runs every residue's chains as lanes
-of the fused sweep kernel, ``finish_batch`` post-processes each residue,
-and ``ProcessProtein`` collects the per-residue results into the protein's
-tau table.
+of the fused sweep kernels, ``finish_batch`` post-processes all residues
+in bucketed batches, and ``ProcessProtein`` collects the per-residue
+results into the protein's tau table.
 """
 
 from __future__ import annotations
@@ -20,18 +20,28 @@ import numpy as np
 from basicrta_tpu.ops.surv import ci_bars
 from basicrta_torch.config import GibbsConfig
 from basicrta_torch.contacts.records import ContactEvents
-from basicrta_torch.postprocess.tau import AllNoiseError
+from basicrta_torch.postprocess.batched import process_residues_batched
+from basicrta_torch.postprocess.tau import AllNoiseError, estimate_params
 from basicrta_torch.sampler.batch import run_residues
 from basicrta_torch.sampler.gibbs import Gibbs
 
 
 def finish_batch(gibbs_by_label: Dict[str, Gibbs], chain=0,
                  save: bool = True, device=None) -> None:
-    """Post-process every residue's samples (clustering, votes, tau) and
-    fill each Gibbs with its results; a residue whose clusters are all
-    noise records tau (0, 0, 0)."""
-    for g in gibbs_by_label.values():
-        g.process_gibbs(chain=chain, save=False, device=device)
+    """Post-process every residue's samples in bucketed batches
+    (:func:`~basicrta_torch.postprocess.batched.process_residues_batched`)
+    and fill each Gibbs with its clusters, parameters and tau; a residue
+    whose clusters are all noise records tau (0, 0, 0)."""
+    if not gibbs_by_label:
+        return
+    items = {lab: (g.mcweights, g.mcrates, g._values, g._counts)
+             for lab, g in gibbs_by_label.items()}
+    cfg = next(iter(gibbs_by_label.values())).cfg
+    results = process_residues_batched(items, cfg, chain=chain,
+                                       device=device)
+    for lab, g in gibbs_by_label.items():
+        g.processed = results[lab]
+        g.parameters, g.intervals = estimate_params(g.processed)
         try:
             g.estimate_tau()
         except AllNoiseError:
@@ -92,7 +102,8 @@ class ParallelGibbs:
     def run(self, run_resids=None, engine: str = "auto", device=None,
             progress_cb=None) -> Dict[str, Gibbs]:
         """Sample all residues (or ``run_resids``) as lanes of the fused
-        kernel, then post-process each."""
+        kernels on the engine's layout (see ``run_residues``), then
+        post-process them in bucketed batches."""
         all_resids = np.unique(self.events.sel1_resids)
         if run_resids is None:
             resids = all_resids
@@ -100,8 +111,8 @@ class ParallelGibbs:
             resids = all_resids[np.isin(all_resids,
                                         np.atleast_1d(run_resids))]
         labels = residue_labels_for(self.events, resids)
-        times = {lab: self.events.times_for_residue(int(r))
-                 for lab, r in zip(labels, resids)}
+        per_resid = self.events.split_by_residue(resids)
+        times = {lab: per_resid[int(r)] for lab, r in zip(labels, resids)}
         # too few events for the 10/N weight cutoff: skipped with the
         # sentinel missing_residues honours
         min_events = max(2, int(self.cfg.weight_cut_events))

@@ -1,12 +1,22 @@
 """Batched multi-residue Gibbs sampling.
 
-Port of ``basicrta_tpu.sampler.batch`` on the power-of-two bucket ladder:
-every residue (x every chain) is one lane of a bucket, lanes of a bucket
-share one value width, and each host-level segment of ``segment_blocks``
-thinning blocks is one launch of the fused sweep kernel
-(:func:`basicrta_torch.sampler.cuda_sweep.segment`). Segments checkpoint
-and resume exactly, because the kernel reseeds every sweep from the
-absolute sweep index.
+Port of ``basicrta_tpu.sampler.batch``: every residue (x every chain) is
+one lane of a bucket, and each host-level segment of ``segment_blocks``
+thinning blocks is one launch of the fused sweep kernel. Two layouts:
+
+- the production layout (``ladder=None``, the JAX package's default for
+  its fused engine): a cost-model DP over the V-sorted residues, adjacent
+  buckets merged under k-way mixed-width packing, so up to 12 residues
+  share one 128-column physical lane (K3,
+  :func:`basicrta_torch.sampler.cuda_sweep.segment_packed`) and large
+  residues run unpacked (K2, :func:`~basicrta_torch.sampler.cuda_sweep.
+  segment`);
+- the coarse power-of-two ladder (``ladder='pow2'``), unpacked.
+
+The layout code is pure numpy and a line-for-line port, including the
+cost constants fitted on the TPU, so both packages lay a protein out into
+the same buckets. Segments checkpoint and resume exactly, because the
+kernels reseed every sweep from the absolute sweep index.
 """
 
 from __future__ import annotations
@@ -15,16 +25,20 @@ import dataclasses
 import hashlib
 import os
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from basicrta_torch.config import GibbsConfig
-from basicrta_torch.sampler.cuda_sweep import pad_tiers_to_rows, segment, \
-    segment_torch
-from basicrta_torch.sampler.kernels import (MixtureState, compute_tiers,
-                                            dedup_times, init_mixture_params)
+from basicrta_torch.sampler.cuda_sweep import (pad_tiers_to_rows,
+                                               packed_row_tiers, segment,
+                                               segment_packed,
+                                               segment_packed_torch,
+                                               segment_torch)
+from basicrta_torch.sampler.kernels import (SMALL_NMAX, MixtureState,
+                                            compute_tiers, dedup_times,
+                                            init_mixture_params)
 
 ENGINES = ("auto", "cuda", "torch")
 
@@ -40,39 +54,399 @@ def _next_pow2(n: int, floor: int = 128, step: int = 2) -> int:
 @dataclasses.dataclass
 class ResidueBatch:
     """A padded, stacked bucket of residues; value columns are sorted by
-    multiplicity descending per lane, padding has count 0 and value 1."""
+    multiplicity descending per lane, padding has count 0 and value 1.
+
+    ``pack > 1`` marks a packed bucket: ``pack`` logical lanes share one
+    128-column physical lane. With ``bounds`` None the split is uniform
+    (each lane owns 128 // pack columns of every row); otherwise
+    ``bounds`` is the (Bph, pack) per-slot column widths of the k-way
+    mixed layout (0 = empty slot), members stored lane-major in slot
+    order, each owning its slot's columns of all ``phys_rows`` rows."""
     names: List[str]               # residue labels, length B
     values: np.ndarray             # (B, V) unique residence times
     counts: np.ndarray             # (B, V) multiplicities, 0 marks padding
     n_events: np.ndarray           # (B,) true event count per residue
     tiers: Tuple[int, int] = (0, 0)  # column tier boundaries
+    pack: int = 1                  # logical lanes per physical lane
+    bounds: Optional[np.ndarray] = None  # (Bph, pack) mixed slot widths
+    phys_rows: int = 0             # rows per physical lane (mixed only)
 
     @property
     def size(self) -> int:
         return len(self.names)
 
 
+# packed segment widths: V <= 16/32 shares a physical lane 8/4-up; larger
+# residues pair into 64-column segments
+_PACK_WIDTHS = (16, 32)
+_PACK2_W = 64
+
+
+def _pack_choice(V: int):
+    """(width, pack) of the raw fine ladder (``consolidate=False``)."""
+    for w in _PACK_WIDTHS:
+        if V <= w:
+            return (w, 128 // w)
+    r = -(-V // _PACK2_W)
+    if r == 1 or r % 2 == 1:
+        return (_PACK2_W * r, 2)
+    return (-(-V // 128) * 128, 1)
+
+
+# The JAX package's per-sweep cost model [us/sweep], fitted on a TPU v5e
+# (basicrta_tpu/sampler/batch.py). Kept as they are so that both packages
+# lay a protein out into the same buckets; a fit on the H100 is separate,
+# measured work.
+_COST_PER_BUCKET = 3.8      # per-call overhead / segment length
+_COST_ROW = 0.020           # per padded physical row (floor)
+_COST_HEAD_PREM = 0.635     # per head-tier row x lane
+_COST_SMALL_PREM = 0.109    # per small-tier row x lane
+_COST_LANE_LOG = 0.120      # per logical lane (conjugate draw)
+
+
+def _phys_groups(Bph: int, SL: int, pack: int) -> Tuple[int, int]:
+    """(NG, G) lane groups of a bucket of Bph physical lanes at the
+    production K = 15, n_blocks = 100 (the kernel's group layout)."""
+    K_nom, nb_nom = 15, 100
+    per_lane = (K_nom + 12) * SL * 128 * 4 + 2 * nb_nom * pack * K_nom * 4
+    g_fit = max(8, ((12 * 2 ** 20) // per_lane) // 8 * 8)
+    cap = min(64, g_fit)
+    NG = -(-Bph // cap)
+    G = max(8, (-(-Bph // NG) + 7) // 8 * 8)
+    return NG, G
+
+
+def _cost_terms(Bph: int, SL: int, head: int, small: int,
+                pack: int) -> float:
+    """Modelled us/sweep of a bucket's physical layout: a per-group
+    constant plus per-row terms over the padded lane count."""
+    NG, G = _phys_groups(Bph, SL, pack)
+    lanes = NG * G
+    return (_COST_PER_BUCKET * NG
+            + lanes * SL * _COST_ROW
+            + lanes * head * _COST_HEAD_PREM
+            + lanes * (small - head) * _COST_SMALL_PREM
+            + lanes * pack * _COST_LANE_LOG)
+
+
+def _layout_cost(B: int, width: int, pack: int, head_end: int,
+                 single_start: int) -> float:
+    """Modelled us/sweep of one bucket of B lanes whose worst member has
+    ``head_end`` head-tier and ``single_start`` multi-count columns."""
+    seg_w = 128 // pack if pack > 1 else 128
+    SL = max(1, width // seg_w)
+    head = min(-(-head_end // seg_w), SL)
+    small = min(max(-(-single_start // seg_w), head), SL)
+    return _cost_terms(-(-B // pack), SL, head, small, pack)
+
+
+def _bucket_cost(members, width: int, pack: int) -> float:
+    """_layout_cost of a concrete member list."""
+    if not members:
+        return 0.0
+    head_end = max(int(np.sum(c > SMALL_NMAX)) for _, _, c in members)
+    single_start = max(int(np.sum(c > 1)) for _, _, c in members)
+    return _layout_cost(len(members), width, pack, head_end, single_start)
+
+
+def modeled_work_waste(batches: Sequence["ResidueBatch"]) -> float:
+    """Fraction of modelled per-sweep kernel work spent on padding under
+    the cost model's row terms (the per-group constant excluded)."""
+    padded = live = 0.0
+    for b in batches:
+        if b.bounds is not None:
+            Bph, SL = len(b.bounds), b.phys_rows
+            cost = _mixed_cost([(None, None, c) for c in b.counts],
+                               b.bounds, b.phys_rows)
+        else:
+            Bph = -(-b.size // b.pack)
+            seg_w = 128 // b.pack if b.pack > 1 else 128
+            SL = max(1, b.values.shape[1] // seg_w)
+            head_end = int(max((np.sum(c > SMALL_NMAX) for c in b.counts),
+                               default=0))
+            single_start = int(max((np.sum(c > 1) for c in b.counts),
+                                   default=0))
+            cost = _layout_cost(b.size, b.values.shape[1], b.pack,
+                                head_end, single_start)
+        padded += cost - _COST_PER_BUCKET * _phys_groups(Bph, SL,
+                                                         b.pack)[0]
+        for c in b.counts:
+            n_head = float(np.sum(c > SMALL_NMAX))
+            n_multi = float(np.sum(c > 1))
+            n_live = float(np.sum(c > 0))
+            live += (n_live * _COST_ROW
+                     + n_head * _COST_HEAD_PREM
+                     + (n_multi - n_head) * _COST_SMALL_PREM) / 128.0
+            live += _COST_LANE_LOG
+    return 1.0 - live / padded if padded > 0 else 0.0
+
+
+def _mixed_kpack(group, kmax: int = 12):
+    """Mixed-width k-way layout of one bucket: best-fit-decreasing
+    bin-packing of members into 128-column physical lanes (member i owns
+    ceil(V_i / SL) columns of all SL rows, at most ``kmax`` members a
+    lane), the cost model choosing among the candidate (SL, k).
+
+    Returns (ordered_members, widths, SL): members lane-major in slot
+    order, widths (Bph, pack) per-slot column widths (0 = empty slot),
+    SL physical rows per lane."""
+    Vs = [len(v) for _, v, _ in group]
+    Vmax = max(Vs)
+    min_sl = max(1, -(-Vmax // 128))
+    cand_sl = sorted(set(list(range(min_sl, 3 * min_sl + 1))
+                         + [(min_sl * f) // 2 for f in (7, 8)]))
+    order = sorted(range(len(group)), key=lambda i: -Vs[i])
+    best = None
+    for SL in cand_sl:
+        ws = [-(-V // SL) for V in Vs]
+        if max(ws) > 128:
+            continue
+        for k in range(2, kmax + 1):
+            lanes = []                     # [free_cols, [member_idx, ...]]
+            for i in order:
+                w = ws[i]
+                fit = None
+                for L in lanes:
+                    if L[0] >= w and len(L[1]) < k and (
+                            fit is None or L[0] < fit[0]):
+                        fit = L            # best (tightest) fit
+                if fit is None:
+                    lanes.append([128 - w, [i]])
+                else:
+                    fit[0] -= w
+                    fit[1].append(i)
+            pack = max(len(L[1]) for L in lanes)
+            if pack < 2:
+                continue
+            widths = np.zeros((len(lanes), pack), np.int64)
+            members = []
+            for g, (_, idxs) in enumerate(lanes):
+                for s, i in enumerate(idxs):
+                    members.append(group[i])
+                    widths[g, s] = ws[i]
+            cost = _mixed_cost(members, widths, SL)
+            if best is None or cost < best[0]:
+                best = (cost, members, widths, SL)
+    if best is None:                       # single member or none fit
+        m = group[0]
+        return [m], np.asarray([[128]], np.int64), -(-len(m[1]) // 128)
+    return best[1], best[2], best[3]
+
+
+def _mixed_cost(members, widths: np.ndarray, SL: int) -> float:
+    """Modelled us/sweep of a mixed-width k-way bucket: member i's head
+    and multi-count columns occupy the first ceil(H_i / w_i) rows of its
+    own segment."""
+    ws = widths[widths > 0]       # row-major nonzero == member order
+    head = small = 0
+    for (name, v, c), w in zip(members, ws):
+        H = int(np.sum(c > SMALL_NMAX))
+        S1 = int(np.sum(c > 1))
+        head = max(head, -(-H // int(w)))
+        small = max(small, -(-S1 // int(w)))
+    small = min(max(small, head), SL)
+    head = min(head, SL)
+    return _cost_terms(len(widths), SL, head, small, widths.shape[1])
+
+
+def _pack_mixed(values_np: np.ndarray, counts_np: np.ndarray,
+                widths: np.ndarray, SL: int):
+    """Host-side physical packing of a mixed-width k-way bucket.
+
+    values/counts: (B, V) members, lane-major in slot order; widths:
+    (Bph, pack) per-slot column widths, 0 marking empty slots. Returns
+    (v_ph, c_ph, seg_id, slot_idx): physical (Bph, SL, 128) rows, the
+    (Bph, 128) f32 owning-slot tile (columns owned by no member carry
+    slot 0 and count 0), and each member's slot index g * pack + s."""
+    Bph, pack = widths.shape
+    B, V = values_np.shape
+    v_ph = np.ones((Bph, SL, 128), np.float32)
+    c_ph = np.zeros((Bph, SL, 128), np.float32)
+    seg_id = np.zeros((Bph, 128), np.float32)
+    slot_idx = []
+    i = 0
+    for g in range(Bph):
+        off = 0
+        for s in range(pack):
+            w = int(widths[g, s])
+            if w == 0:
+                continue
+            if i >= B:
+                raise ValueError("mixed-pack underflow: widths name more "
+                                 f"slots than the {B} members provided")
+            cap = SL * w
+            n = min(cap, V)
+            if counts_np[i, cap:].any():
+                raise ValueError(
+                    f"mixed-pack overflow: member {i} has live columns "
+                    f"beyond its segment capacity {cap} (SL={SL}, "
+                    f"width={w})")
+            va = np.ones((cap,), np.float32)
+            ca = np.zeros((cap,), np.float32)
+            va[:n] = values_np[i, :n]
+            ca[:n] = counts_np[i, :n]
+            v_ph[g, :, off:off + w] = va.reshape(SL, w)
+            c_ph[g, :, off:off + w] = ca.reshape(SL, w)
+            seg_id[g, off:off + w] = s
+            slot_idx.append(g * pack + s)
+            off += w
+            i += 1
+    if i != B:
+        raise ValueError(f"mixed-pack underflow: {B} members but widths "
+                         f"name only {i} slots")
+    return v_ph, c_ph, seg_id, np.asarray(slot_idx, np.int64)
+
+
+def _mixed_row_tiers(c_ph: np.ndarray) -> Tuple[int, int]:
+    """Physical-row tiers of a mixed-packed bucket: each segment is
+    multiplicity-sorted row-major, so per-row maxima never increase."""
+    rowmax = c_ph.max(axis=(0, 2)) if c_ph.size else np.zeros((0,))
+    head = int((rowmax > SMALL_NMAX).sum())
+    small = max(int((rowmax > 1).sum()), head)
+    return head, small
+
+
+def _dp_configs(Vm: int):
+    """Every (width, pack) class that fits a bucket whose largest member
+    has Vm live columns."""
+    out = []
+    for w in _PACK_WIDTHS:
+        if Vm <= w:
+            out.append((w, 128 // w))
+    out.append((_PACK2_W * -(-Vm // _PACK2_W), 2))
+    out.append((-(-Vm // 128) * 128, 1))
+    return out
+
+
+def _dp_layout(items) -> List[Tuple[Tuple[int, int], list]]:
+    """Minimum-cost contiguous partition of the V-sorted residue list
+    under :func:`_layout_cost`, every :func:`_dp_configs` class a
+    candidate for each bucket. Returns [((width, pack), members), ...]."""
+    items = sorted(items, key=lambda it: len(it[1]))
+    n = len(items)
+    H = [int(np.sum(c > SMALL_NMAX)) for _, _, c in items]
+    S1 = [int(np.sum(c > 1)) for _, _, c in items]
+    dp = [0.0] + [float("inf")] * n    # dp[j]: min cost of items[:j]
+    cut = [0] * (n + 1)
+    cfg = [None] * (n + 1)
+    for j in range(1, n + 1):
+        Vm = len(items[j - 1][1])
+        hmax = smax = 0
+        for i in range(j - 1, -1, -1):
+            hmax = max(hmax, H[i])
+            smax = max(smax, S1[i])
+            best, bkey = float("inf"), None
+            for (w, p) in _dp_configs(Vm):
+                c = _layout_cost(j - i, w, p, hmax, smax)
+                if c < best:
+                    best, bkey = c, (w, p)
+            tot = dp[i] + best
+            if tot < dp[j]:
+                dp[j], cut[j], cfg[j] = tot, i, bkey
+    groups = []
+    j = n
+    while j > 0:
+        i = cut[j]
+        groups.append((cfg[j], items[i:j]))
+        j = i
+    groups.reverse()
+    return groups
+
+
+def _kpack_or_uniform_cost(key, group, kmax: int = 12) -> float:
+    """Modelled cost of a bucket under the cheaper of its uniform class
+    and the k-way mixed packing."""
+    c = _bucket_cost(group, key[0], key[1])
+    if len(group) > 1:
+        m, w, sl = _mixed_kpack(group, kmax=kmax)
+        c = min(c, _mixed_cost(m, w, sl))
+    return c
+
+
+def _merge_adjacent(groups, kmax: int = 12):
+    """Greedy merge of adjacent DP buckets while the merged k-way layout
+    models cheaper than the pair."""
+    groups = list(groups)
+    costs = [_kpack_or_uniform_cost(k, g, kmax) for k, g in groups]
+    while len(groups) > 1:
+        best = None
+        for i in range(len(groups) - 1):
+            merged = groups[i][1] + groups[i + 1][1]
+            Vm = max(len(v) for _, v, _ in merged)
+            key = (-(-Vm // 128) * 128, 1)
+            c = _kpack_or_uniform_cost(key, merged, kmax)
+            gain = costs[i] + costs[i + 1] - c
+            if gain > 1e-9 and (best is None or gain > best[0]):
+                best = (gain, i, key, merged, c)
+        if best is None:
+            break
+        _, i, key, merged, c = best
+        groups[i:i + 2] = [(key, merged)]
+        costs[i:i + 2] = [c]
+    return groups
+
+
 def bucket_residues(times_per_residue: Dict[str, np.ndarray],
-                    floor: Optional[int] = None) -> List[ResidueBatch]:
-    """Group residues into power-of-two unique-count buckets (the layout
-    ``basicrta_tpu`` gives its XLA engine with ``ladder='pow2'``): V is
-    the smallest ``floor * 2^k`` (floor 128) covering a residue's unique
-    values, so every bucket is a whole number of 128-column rows."""
-    buckets: Dict[int, list] = {}
+                    floor: Optional[int] = None,
+                    pack_small: bool = True,
+                    ladder: Optional[str] = None,
+                    consolidate: bool = True,
+                    mixed_pack: bool = True,
+                    kmax: int = 12) -> List[ResidueBatch]:
+    """Group residues into buckets (``basicrta_tpu`` ``bucket_residues``).
+
+    The default is the production layout: :func:`_dp_layout`, then
+    :func:`_merge_adjacent` and, per bucket, the k-way mixed packing where
+    the cost model prefers it. ``ladder='pow2'`` gives the coarse
+    power-of-two unpacked layout (V the smallest ``floor * 2^k``, floor
+    128); an explicit ``floor`` keeps a single-class unpacked layout;
+    ``consolidate=False`` gives the raw fine ladder of
+    :func:`_pack_choice`."""
+    items = []
     for name, t in times_per_residue.items():
         if len(t) == 0:
             continue
         v, c = dedup_times(t)
-        buckets.setdefault(_next_pow2(len(v), floor or 128), []).append(
-            (name, v, c))
+        items.append((name, v, c))
+    packing = pack_small and floor is None and ladder != "pow2"
+    if floor is None:
+        floor = 128
+    if packing and consolidate:
+        groups = _dp_layout(items)
+        if mixed_pack:
+            groups = _merge_adjacent(groups, kmax=kmax)
+    else:
+        buckets: Dict[Tuple[int, int], list] = {}
+        for name, v, c in items:
+            if packing:
+                key = _pack_choice(len(v))
+            elif ladder == "pow2":
+                key = (_next_pow2(len(v), floor), 1)
+            else:
+                key = (max(floor, -(-len(v) // 128) * 128), 1)
+            buckets.setdefault(key, []).append((name, v, c))
+        groups = sorted(buckets.items())
+
     out = []
-    for V, group in sorted(buckets.items()):
+    for (V, pack), group in groups:
+        bounds, phys_rows = None, 0
+        if mixed_pack and packing and consolidate and len(group) > 1:
+            # adopt the k-way mixed packing where it models cheaper than
+            # the bucket's uniform class
+            m_members, m_widths, m_rows = _mixed_kpack(group, kmax=kmax)
+            if (_mixed_cost(m_members, m_widths, m_rows)
+                    < _bucket_cost(group, V, pack)):
+                group = m_members
+                bounds, phys_rows = m_widths, m_rows
+                pack = int(m_widths.shape[1])
+                V = max(len(v) for _, v, _ in group)
         B = len(group)
-        values = np.ones((B, V), np.float64)
+        values = np.zeros((B, V), np.float64)
         counts = np.zeros((B, V), np.float64)
         names, n_events = [], []
         for i, (name, v, c) in enumerate(group):
             values[i, :len(v)] = v
+            values[i, len(v):] = 1.0
             counts[i, :len(c)] = c
             names.append(name)
             n_events.append(int(c.sum()))
@@ -80,7 +454,8 @@ def bucket_residues(times_per_residue: Dict[str, np.ndarray],
         out.append(ResidueBatch(names,
                                 np.take_along_axis(values, order, axis=-1),
                                 np.take_along_axis(counts, order, axis=-1),
-                                np.asarray(n_events), tiers))
+                                np.asarray(n_events), tiers, pack=pack,
+                                bounds=bounds, phys_rows=phys_rows))
     return out
 
 
@@ -161,6 +536,36 @@ def resolve_engine(engine: str, device=None) -> Tuple[str, torch.device]:
     return engine, device
 
 
+def _kernel_layout(batch: ResidueBatch):
+    """What the kernel takes for a bucket: (values, counts, row tiers,
+    seg_id, slot_take, Bs). Mixed buckets are packed on the host into
+    physical (Bph, SL * 128) rows with the owning-slot tile ``seg_id``;
+    their kernel state is slot-ordered (Bs = Bph * pack slots, empty ones
+    included) and ``slot_take`` gathers the members back. Other buckets
+    pad their lanes to a multiple of ``pack``."""
+    B, V = batch.values.shape
+    pack = batch.pack
+    if batch.bounds is not None:
+        widths = np.asarray(batch.bounds, np.int64)
+        v_ph, c_ph, seg_id, slot_take = _pack_mixed(
+            np.asarray(batch.values, np.float32),
+            np.asarray(batch.counts, np.float32), widths, batch.phys_rows)
+        Bph = widths.shape[0]
+        return (v_ph.reshape(Bph, -1), c_ph.reshape(Bph, -1),
+                _mixed_row_tiers(c_ph), seg_id, slot_take, Bph * pack)
+    Bs = -(-B // pack) * pack
+    values = np.ones((Bs, V), np.float32)
+    values[:B] = batch.values
+    counts = np.zeros((Bs, V), np.float32)
+    counts[:B] = batch.counts
+    if pack > 1:
+        seg_w = 128 // pack
+        tiers = packed_row_tiers(batch.tiers, seg_w, V // seg_w)
+    else:
+        tiers = pad_tiers_to_rows(batch.tiers, V)
+    return values, counts, tiers, None, None, Bs
+
+
 def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
               segment_blocks: int = 100,
               checkpoint_path: Optional[str] = None,
@@ -176,27 +581,39 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
             same for any segmentation.
         checkpoint_cb: optional ``f(segment_idx, state, (Ws, Rs))``.
         progress_cb: optional ``f(done_sweeps, total_sweeps)``.
-        engine: 'cuda' (the fused kernel), 'torch' (its plain version) or
-            'auto' (see :func:`resolve_engine`).
+        engine: 'cuda' (the fused kernels), 'torch' (their plain versions)
+            or 'auto' (see :func:`resolve_engine`). Packed buckets run K3
+            (``segment_packed``), the others K2 (``segment``).
         device: where the lanes live; defaults from the engine.
     """
     engine, device = resolve_engine(engine, device)
     if checkpoint_path is not None and not checkpoint_path.endswith(".npz"):
         checkpoint_path += ".npz"
-    B, V = batch.values.shape
+    B = batch.size
     K = cfg.ncomp
-    values = torch.as_tensor(batch.values, dtype=torch.float32,
-                             device=device)
-    counts = torch.as_tensor(batch.counts, dtype=torch.float32,
-                             device=device)
+    pack = batch.pack
+    values_np, counts_np, tiers, seg_id, slot_np, Bs = _kernel_layout(batch)
+    values = torch.as_tensor(values_np, dtype=torch.float32, device=device)
+    counts = torch.as_tensor(counts_np, dtype=torch.float32, device=device)
+    mixed = seg_id is not None
+    if mixed:
+        seg_mask = torch.as_tensor(seg_id, device=device)
+        slot_take = torch.as_tensor(slot_np, device=device)
     st0 = init_mixture_params(K, device=device)
-    state = MixtureState(st0.weights.repeat(B, 1), st0.rates.repeat(B, 1))
+    state = MixtureState(st0.weights.repeat(Bs, 1), st0.rates.repeat(Bs, 1))
     total_blocks = cfg.niter // cfg.g
     # salt the seed by the bucket's residue set (as the JAX package's
     # fused engine does), so buckets never share streams
     bucket_salt = zlib.crc32(",".join(batch.names).encode()) & 0x7FFFFFFF
     seed0 = (cfg.seed ^ bucket_salt) & 0x7FFFFFFF
     ckpt_engine = f"basicrta_torch-{engine}"
+    if pack > 1:
+        ckpt_engine += f"-p{pack}"
+    if mixed:
+        # the width layout decides which uniform feeds which draw, so
+        # checkpoints never resume across mixed/uniform layouts
+        crc = zlib.crc32(np.asarray(batch.bounds, np.int64).tobytes())
+        ckpt_engine += f"-mx{crc & 0xffff:04x}"
     Ws: list = []
     Rs: list = []
     done = seg_idx = 0
@@ -204,17 +621,36 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
         resumed = load_checkpoint(checkpoint_path, batch, cfg, ckpt_engine)
         if resumed is not None:
             done, seg_idx, ck, Ws, Rs = resumed
-            state = MixtureState(
-                torch.as_tensor(ck.weights, dtype=torch.float32,
-                                device=device),
-                torch.as_tensor(ck.rates, dtype=torch.float32,
-                                device=device))
-    tiers = pad_tiers_to_rows(batch.tiers, V)
-    step = segment if engine == "cuda" else segment_torch
+            # checkpoints hold the B members' state: scatter it back into
+            # the kernel's slots (mixed) or re-pad the lanes
+            w = torch.ones((Bs, K), dtype=torch.float32, device=device)
+            r = torch.ones((Bs, K), dtype=torch.float32, device=device)
+            rows = slot_take if mixed else slice(0, B)
+            w[rows] = torch.as_tensor(ck.weights, dtype=torch.float32,
+                                      device=device)
+            r[rows] = torch.as_tensor(ck.rates, dtype=torch.float32,
+                                      device=device)
+            state = MixtureState(w, r)
+    if pack > 1:
+        fn = segment_packed if engine == "cuda" else segment_packed_torch
+
+        def step(offset, st, nb):
+            return fn(seed0, offset, st, values, counts, cfg, nb, tiers,
+                      pack, seg_mask if mixed else None)
+    else:
+        fn = segment if engine == "cuda" else segment_torch
+
+        def step(offset, st, nb):
+            return fn(seed0, offset, st, values, counts, cfg, nb, tiers)
+
+    def members(x):
+        """Kernel rows (slots or padded lanes) -> the B members."""
+        return x.index_select(0, slot_take) if mixed else x[:B]
+
     while done < total_blocks:
         nb = min(segment_blocks, total_blocks - done)
-        state, W, R = step(seed0, done * cfg.g, state, values, counts, cfg,
-                           nb, tiers)
+        state, W, R = step(done * cfg.g, state, nb)
+        W, R = members(W), members(R)
         if checkpoint_path is not None or checkpoint_cb is not None:
             W, R = W.cpu().numpy(), R.cpu().numpy()
         Ws.append(W)
@@ -222,8 +658,8 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
         done += nb
         seg_idx += 1
         if checkpoint_path is not None:
-            ck = MixtureState(state.weights.cpu().numpy(),
-                              state.rates.cpu().numpy())
+            ck = MixtureState(members(state.weights).cpu().numpy(),
+                              members(state.rates).cpu().numpy())
             save_checkpoint(checkpoint_path, batch, cfg, done, seg_idx, ck,
                             Ws, Rs, ckpt_engine)
         if checkpoint_cb is not None:
@@ -243,11 +679,15 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
 
 def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
                  n_chains: int = 1, checkpoint_dir: Optional[str] = None,
+                 ladder: Optional[str] = "auto",
                  **kwargs) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     """All-residue driver: bucket, then run each bucket on the device.
 
     Chains are extra lanes (the residue repeated as ``name#chain``).
-    Residues with no events are omitted. ``kwargs`` go to
+    Residues with no events are omitted. ``ladder`` picks the layout:
+    'auto' follows the engine as the JAX package does (the production
+    layout for 'cuda', the pow2 ladder for 'torch'); None forces the
+    production layout and 'pow2' the pow2 ladder. ``kwargs`` go to
     :func:`run_batch` (engine, device, progress_cb, segment_blocks).
 
     Returns:
@@ -260,7 +700,9 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
     out: Dict[str, list] = {name: [None] * n_chains for name in nonempty}
     engine, _ = resolve_engine(kwargs.get("engine", "auto"),
                                kwargs.get("device"))
-    for batch in bucket_residues(expanded):
+    if ladder == "auto":
+        ladder = None if engine == "cuda" else "pow2"
+    for batch in bucket_residues(expanded, ladder=ladder):
         ckpt = None
         if checkpoint_dir is not None:
             os.makedirs(checkpoint_dir, exist_ok=True)

@@ -1,7 +1,7 @@
 """The fused collapsed-Gibbs sweep: CUDA kernels and their plain versions.
 
-Counterpart of ``basicrta_tpu.sampler.pallas_sweep`` (unpacked layout,
-``pack=1``). Two kernels, built from ``csrc/sweep.cu``:
+Counterpart of ``basicrta_tpu.sampler.pallas_sweep``. Three kernels, built
+from ``csrc/sweep.cu``:
 
 - :func:`sweep_stats` (K1) — one sweep's sufficient statistics (N_k, T_k)
   per lane: suffix sums, then the K-1 stage conditional-binomial chain in
@@ -9,7 +9,11 @@ Counterpart of ``basicrta_tpu.sampler.pallas_sweep`` (unpacked layout,
   tier, inverse-CDF singletons). Replaces ``pallas_sweep.sweep_stats``.
 - :func:`segment` (K2) — ``n_blocks * g`` whole sweeps per launch with the
   Dirichlet/Gamma conjugate draw inside the kernel, writing the thinned
-  state every g sweeps. Replaces ``pallas_sweep.segment_pallas``.
+  state every g sweeps. Replaces ``pallas_sweep.segment_pallas`` with
+  ``pack=1``.
+- :func:`segment_packed` (K3) — K2 with ``pack`` logical lanes, each with
+  its own chain, sharing one 128-column physical lane in uniform or mixed
+  widths. Replaces ``pallas_sweep._segment_pallas_packed``.
 
 Random numbers come from the JAX package's counter hash (``_hash_bits``)
 keyed by (seed, lane group, call-site tag, round, element id), with the
@@ -26,6 +30,7 @@ kernel for CUDA tensors (or raises); ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -51,6 +56,7 @@ _TINY = 1e-30
 _M32 = 0xFFFFFFFF
 _ELEM_MUL = 0x27D4EB2F
 _KMAX = 32          # largest K the CUDA kernels take (local arrays)
+_PACK_MAX = 16      # most logical lanes K3 packs into one physical lane
 
 
 # --------------------------------------------------------------------- #
@@ -311,42 +317,62 @@ def _gamma_mt(rng: _Rng, felem, a):
 # the sweep body (plain)
 
 class _Layout:
-    """Per-lane hash keys and tier column ranges of one bucket."""
+    """Per-lane hash keys and tier column ranges of one bucket of B
+    (physical) lanes in groups of G. ``pack > 1`` (K3) gives the
+    conjugate draw its (2, pack, G, K) tile and each lane ``pack`` slots
+    of statistics."""
 
     def __init__(self, B: int, V: int, K: int, tiers: Tuple[int, int],
-                 rows_per_lane: int, device):
+                 G: int, device, pack: int = 1):
         head_rows, small_rows = tiers
         self.hh = head_rows * _LANES
         self.hs = small_rows * _LANES
         self.V = V
-        G = group_size(B, V, rows_per_lane)
         self.lane = _lane_ids(B, G, device)
         self.fe_head = _tier_elems(B, G, 0, self.hh, device)
         self.fe_small = _tier_elems(B, G, self.hh, self.hs, device)
         self.fe_single = _tier_elems(B, G, self.hs, V, device)
-        # the conjugate draw's (2, G, K) tile
-        i = torch.arange(2, device=device, dtype=torch.int64)[None, :, None]
-        k = torch.arange(K, device=device, dtype=torch.int64)[None, None, :]
-        g = (torch.arange(B, device=device, dtype=torch.int64)
-             % G)[:, None, None]
-        self.fe_gamma = _murmur_fmix(_element_ids(i, g, k))
+        self.zeros = torch.zeros((B,) if pack == 1 else (B, pack),
+                                 dtype=torch.float32, device=device)
+        ar = lambda n: torch.arange(n, device=device,  # noqa: E731
+                                    dtype=torch.int64)
+        g = ar(B) % G
+        if pack == 1:
+            # the conjugate draw's (2, G, K) tile
+            self.fe_gamma = _murmur_fmix(_element_ids(
+                ar(2)[None, :, None], g[:, None, None],
+                ar(K)[None, None, :]))
+        else:
+            # (2, pack, G, K): the leading pair of iota axes folds first
+            i_s = (ar(2)[:, None] * _ELEM_MUL + ar(pack)[None, :]) & _M32
+            self.fe_gamma = _murmur_fmix(_element_ids(
+                i_s[None, :, :, None], g[:, None, None, None],
+                ar(K)[None, None, None, :]))
 
 
 def _suffix_sums(v, w, r, K: int):
-    """[S_0..S_{K-1}], S_k = sum_{j>=k} w_j r_j exp(-r_j v)."""
+    """[S_0..S_{K-1}], S_k = sum_{j>=k} w_j r_j exp(-r_j v). ``w``/``r``
+    are per lane (B, K) or per column (B, K, V)."""
     z = [None] * K
     zsum = torch.zeros_like(v)
     for k in range(K - 1, -1, -1):
-        zsum = zsum + (w[:, k:k + 1] * r[:, k:k + 1]) * torch.exp(
-            -r[:, k:k + 1] * v)
+        wk, rk = ((w[:, k], r[:, k]) if w.dim() == 3
+                  else (w[:, k:k + 1], r[:, k:k + 1]))
+        zsum = zsum + (wk * rk) * torch.exp(-rk * v)
         z[k] = zsum
     return z
 
 
-def _suff_stats(rng: _Rng, lay: _Layout, v, c, w, r, K: int, h4: bool):
-    """Sufficient statistics (N_k, T_k), each (B, K), of one collapsed
-    sweep (``pallas_sweep._suff_stats`` on the (B, V) layout)."""
-    B = v.shape[0]
+def _lane_sums(draw, vals):
+    """(N, T) contributions of a (B, cols) draw to each lane."""
+    return draw.sum(1), (vals * draw).sum(1)
+
+
+def _suff_stats(rng: _Rng, lay: _Layout, v, c, w, r, K: int, h4: bool,
+                reduce=_lane_sums):
+    """Sufficient statistics (N_k, T_k) of one collapsed sweep
+    (``pallas_sweep._suff_stats`` on the (B, V) layout), each (B, K), or
+    (B, pack, K) with K3's per-slot ``reduce``."""
     hh, hs, V = lay.hh, lay.hs, lay.V
     z = _suffix_sums(v, w, r, K)
     if V > hs:
@@ -357,7 +383,7 @@ def _suff_stats(rng: _Rng, lay: _Layout, v, c, w, r, K: int, h4: bool):
         prev_ind = torch.ones_like(thresh)
     rem = c[:, :hs]
     v_hs = v[:, :hs]
-    zeros = torch.zeros((B,), dtype=torch.float32, device=v.device)
+    zeros = lay.zeros
     ns_list, ts_list = [], []
     for k in range(K - 1):
         ns_k, ts_k = zeros, zeros
@@ -375,25 +401,29 @@ def _suff_stats(rng: _Rng, lay: _Layout, v, c, w, r, K: int, h4: bool):
                 parts.append(_binom_inversion(u, rem[:, hh:], pcond[:, hh:],
                                               _INV_SMALL, nmax_bits=5))
             draw = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
-            ns_k = ns_k + draw.sum(1)
-            ts_k = ts_k + (v_hs * draw).sum(1)
+            dn, dt = reduce(draw, v_hs)
+            ns_k = ns_k + dn
+            ts_k = ts_k + dt
             rem = rem - draw
         if V > hs:
             ind = torch.where(z[k + 1][:, hs:] > thresh, 1.0, 0.0)
             sdraw = c_single * (prev_ind - ind)
             prev_ind = ind
-            ns_k = ns_k + sdraw.sum(1)
-            ts_k = ts_k + (v_single * sdraw).sum(1)
+            dn, dt = reduce(sdraw, v_single)
+            ns_k = ns_k + dn
+            ts_k = ts_k + dt
         ns_list.append(ns_k)
         ts_list.append(ts_k)
     ns_K, ts_K = zeros, zeros
     if hs > 0:
-        ns_K = ns_K + rem.sum(1)
-        ts_K = ts_K + (v_hs * rem).sum(1)
+        dn, dt = reduce(rem, v_hs)
+        ns_K = ns_K + dn
+        ts_K = ts_K + dt
     if V > hs:
         sdraw = c_single * prev_ind
-        ns_K = ns_K + sdraw.sum(1)
-        ts_K = ts_K + (v_single * sdraw).sum(1)
+        dn, dt = reduce(sdraw, v_single)
+        ns_K = ns_K + dn
+        ts_K = ts_K + dt
     ns_list.append(ns_K)
     ts_list.append(ts_K)
     return torch.stack(ns_list, -1), torch.stack(ts_list, -1)
@@ -410,7 +440,9 @@ def _conjugate(rng: _Rng, lay: _Layout, ns, ts, alpha: float, ga: float,
 
 
 def _check(state: MixtureState, values, counts, K: int,
-           tiers: Tuple[int, int]):
+           tiers: Tuple[int, int], state_rows: Optional[int] = None):
+    """Validate a bucket: (B, V) values/counts with V a multiple of 128,
+    row tiers, and a (state_rows, K) state (default B rows)."""
     B, V = values.shape
     if V % _LANES or V == 0:
         raise ValueError(f"value width must be a positive multiple of "
@@ -418,9 +450,10 @@ def _check(state: MixtureState, values, counts, K: int,
     if counts.shape != values.shape:
         raise ValueError(f"counts {tuple(counts.shape)} do not match values "
                          f"{tuple(values.shape)}")
-    if tuple(state.weights.shape) != (B, K) or tuple(
-            state.rates.shape) != (B, K):
-        raise ValueError(f"state must be ({B}, {K}); got "
+    rows = B if state_rows is None else state_rows
+    if tuple(state.weights.shape) != (rows, K) or tuple(
+            state.rates.shape) != (rows, K):
+        raise ValueError(f"state must be ({rows}, {K}); got "
                          f"{tuple(state.weights.shape)}")
     head_rows, small_rows = tiers
     if not 0 <= head_rows <= small_rows <= V // _LANES:
@@ -441,7 +474,7 @@ def sweep_stats_torch(seed: int, state: MixtureState, values, counts,
     _check(state, values, counts, K, tiers)
     sweep_stats_torch.calls += 1
     B, V = values.shape
-    lay = _Layout(B, V, K, tiers, K + 3, values.device)
+    lay = _Layout(B, V, K, tiers, group_size(B, V, K + 3), values.device)
     rng = _Rng(int(seed), lay.lane)
     return _suff_stats(rng, lay, values, counts, state.weights,
                        state.rates, K, h4=False)
@@ -459,7 +492,7 @@ def segment_torch(seed: int, sweep_offset: int, state: MixtureState,
     _check(state, values, counts, K, tiers)
     segment_torch.calls += 1
     B, V = values.shape
-    lay = _Layout(B, V, K, tiers, K + 12, values.device)
+    lay = _Layout(B, V, K, tiers, group_size(B, V, K + 12), values.device)
     w, r = state.weights, state.rates
     W, R = [], []
     for i in range(n_blocks * cfg.g):
@@ -474,15 +507,140 @@ def segment_torch(seed: int, sweep_offset: int, state: MixtureState,
     return MixtureState(w, r), torch.stack(W, 1), torch.stack(R, 1)
 
 
+# --------------------------------------------------------------------- #
+# packed lanes (K3): ``pack`` logical lanes share one physical lane
+
+def packed_row_tiers(tiers: Tuple[int, int], seg_width: int,
+                     SL: int) -> Tuple[int, int]:
+    """Row tiers of a uniformly packed bucket: logical column j of a
+    segment lies in physical row j // seg_width, so a column tier boundary
+    t covers rows [0, ceil(t / seg_width))."""
+    up = lambda x: -(-x // seg_width)  # noqa: E731
+    head = min(up(tiers[0]), SL)
+    small = min(max(up(tiers[1]), head), SL)
+    return head, small
+
+
+def packed_group_size(Bph: int, SL: int, K: int, n_blocks: int, pack: int,
+                      group_cap: Optional[int] = None) -> int:
+    """Physical lanes per group G of the reference's packed layout
+    (``pallas_sweep._segment_pallas_packed``). Its budget counts the
+    thinned outputs too, so G depends on ``n_blocks`` and ``pack``."""
+    per_lane = (K + 12) * SL * _LANES * 4 + 2 * n_blocks * pack * K * 4
+    g_fit = max(8, ((12 * 2 ** 20) // max(1, per_lane)) // 8 * 8)
+    cap = int(min(group_cap or _GROUP, g_fit))
+    NG = -(-Bph // cap)
+    return max(8, (-(-Bph // NG) + 7) // 8 * 8)
+
+
+def _packed_operands(state: MixtureState, values, counts, K: int,
+                     tiers: Tuple[int, int], pack: int, seg_mask):
+    """Physical operands of K3: (v, c, slot) with v/c (Bph, SL * 128) and
+    slot (Bph, 128) int64, each column's owning slot.
+
+    Uniform packing (``seg_mask`` None): values/counts are logical
+    (B, SL * 128 // pack), B a multiple of pack, and lane g's slot s owns
+    columns [s * W, (s + 1) * W) of every row (W = 128 // pack). Mixed
+    packing: values/counts are physical already and ``seg_mask`` is the
+    (Bph, 128) f32 slot-id tile. Either way the state is slot-ordered
+    (pack * Bph, K): logical lane g * pack + s."""
+    if not 2 <= pack <= _PACK_MAX:
+        raise ValueError(f"pack must lie in [2, {_PACK_MAX}]; got {pack}")
+    B, WL = values.shape
+    if seg_mask is None:
+        W = _LANES // pack
+        if _LANES % pack or B % pack or WL % W or WL == 0:
+            raise ValueError(
+                f"packed batch needs B % pack == 0 and width a multiple "
+                f"of 128 // pack; got B={B}, V={WL}, pack={pack}")
+        Bph, SL = B // pack, WL // W
+
+        def to_phys(x):
+            x = x.reshape(Bph, pack, SL, W)
+            return x.transpose(1, 2).reshape(Bph, SL * _LANES)
+
+        values, counts = to_phys(values), to_phys(counts)
+        slot = (torch.arange(_LANES, device=values.device) // W).expand(
+            Bph, _LANES)
+    else:
+        Bph, SL = B, WL // _LANES
+        if (WL % _LANES or WL == 0
+                or tuple(seg_mask.shape) != (Bph, _LANES)):
+            raise ValueError(
+                f"mixed-width packing needs physical (Bph, SL*128) values "
+                f"and a (Bph, 128) slot tile; got values "
+                f"{tuple(values.shape)}, seg_mask {tuple(seg_mask.shape)}")
+        slot = seg_mask.to(torch.int64)
+        if bool(((slot < 0) | (slot >= pack)).any()):
+            raise ValueError(f"slot ids must lie in [0, {pack})")
+    _check(state, values, counts, K, tiers, state_rows=pack * Bph)
+    return values.contiguous(), counts.contiguous(), slot.contiguous()
+
+
+def _slot_sums(masks):
+    """K3's reduction: rows first, then each slot's masked columns
+    (``pallas_sweep._suff_stats_packed`` seg_sums); (Bph, pack) sums."""
+    Bph = masks.shape[0]
+
+    def reduce(draw, vals):
+        rn = draw.view(Bph, -1, _LANES).sum(1)
+        rt = (vals * draw).view(Bph, -1, _LANES).sum(1)
+        return (rn[:, None] * masks).sum(-1), (rt[:, None] * masks).sum(-1)
+    return reduce
+
+
+def segment_packed_torch(seed: int, sweep_offset: int, state: MixtureState,
+                         values, counts, cfg: GibbsConfig, n_blocks: int,
+                         tiers: Tuple[int, int], pack: int, seg_mask=None):
+    """Plain version of K3: ``n_blocks * cfg.g`` sweeps of packed lanes.
+
+    Draw for draw the JAX ``segment_pallas(..., pack=pack,
+    seg_mask=seg_mask)`` in interpret mode. Each column takes its owning
+    slot's (w, r) in the suffix sums; the binomial chain runs on the
+    physical rows as in K2; the statistics reduce rows first, then each
+    slot's columns; the conjugate draw runs on a (2, pack, G, K) tile.
+    ``tiers`` are physical row tiers (:func:`packed_row_tiers`, or the
+    mixed layout's). Returns (state, W, R), slot-ordered, W/R
+    (pack * Bph, n_blocks, K)."""
+    K = cfg.ncomp
+    v, c, slot = _packed_operands(state, values, counts, K, tiers, pack,
+                                  seg_mask)
+    segment_packed_torch.calls += 1
+    Bph, V = v.shape
+    G = packed_group_size(Bph, V // _LANES, K, n_blocks, pack)
+    lay = _Layout(Bph, V, K, tiers, G, v.device, pack)
+    masks = (slot[:, None, :] == torch.arange(pack, device=v.device)[
+        None, :, None]).to(torch.float32)                  # (Bph, pack, 128)
+    reduce = _slot_sums(masks)
+    col_slot = slot.repeat(1, V // _LANES)[:, None, :].expand(Bph, K, V)
+    w = state.weights.reshape(Bph, pack, K)
+    r = state.rates.reshape(Bph, pack, K)
+    W, R = [], []
+    for i in range(n_blocks * cfg.g):
+        seed_sweep = (int(seed) * 2654435761 + int(sweep_offset) + i) & _M32
+        rng = _Rng(seed_sweep, lay.lane)
+        w_col = torch.gather(w.transpose(1, 2), 2, col_slot)  # (Bph, K, V)
+        r_col = torch.gather(r.transpose(1, 2), 2, col_slot)
+        ns, ts = _suff_stats(rng, lay, v, c, w_col, r_col, K, h4=True,
+                             reduce=reduce)
+        w, r = _conjugate(rng, lay, ns, ts, cfg.alpha_eff, cfg.gamma_shape,
+                          cfg.gamma_rate)
+        if (i + 1) % cfg.g == 0:
+            W.append(w.reshape(-1, K))
+            R.append(r.reshape(-1, K))
+    return (MixtureState(w.reshape(-1, K), r.reshape(-1, K)),
+            torch.stack(W, 1), torch.stack(R, 1))
+
+
 sweep_stats_torch.calls = 0
 segment_torch.calls = 0
+segment_packed_torch.calls = 0
 
 
 # --------------------------------------------------------------------- #
 # the CUDA kernels: build, bind, launch
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "sweep.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "build")
 # -fmad=false: a contracted multiply-add changes Acklam's inverse-normal
@@ -505,19 +663,23 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
-def build_library(verbose: bool = False) -> str:
-    """Compile ``csrc/sweep.cu`` into ``build/`` (keyed by a hash of the
-    source and flags) unless that library exists; returns its path."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    key = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = os.path.join(_BUILD_DIR, f"libsweep_{key}.so")
+def build_library(verbose: bool = False, source: str = "sweep.cu") -> str:
+    """Compile ``csrc/<source>`` into ``build/`` (keyed by a hash of the
+    source, the shared headers and the flags) unless that library exists;
+    returns its path."""
+    path = os.path.join(_CSRC, source)
+    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+    for p in [path] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(p, "rb") as f:
+            h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(_BUILD_DIR, f"lib{stem}_{h.hexdigest()[:12]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, path]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -540,6 +702,10 @@ def _library():
         lib.basicrta_segment.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                          i, i, i, i, i, i, i, f, f, f, p]
         lib.basicrta_segment.restype = i
+        lib.basicrta_segment_packed.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                i, i, i, i, i, i, i, i, i,
+                                                i, i, f, f, f, p]
+        lib.basicrta_segment_packed.restype = i
         _lib = lib
     return _lib
 
@@ -619,8 +785,49 @@ def _int32(x: int) -> int:
     return x - (1 << 32) if x >= 1 << 31 else x
 
 
+def segment_packed(seed: int, sweep_offset: int, state: MixtureState,
+                   values, counts, cfg: GibbsConfig, n_blocks: int,
+                   tiers: Tuple[int, int], pack: int, seg_mask=None):
+    """K3: advance every packed logical lane ``n_blocks * cfg.g`` sweeps
+    in one launch (operands as :func:`segment_packed_torch`).
+
+    CPU tensors run :func:`segment_packed_torch`; CUDA tensors launch the
+    kernel. Returns (state, W, R), slot-ordered, W/R
+    (pack * Bph, n_blocks, K)."""
+    if values.device.type == "cpu":
+        return segment_packed_torch(seed, sweep_offset, state, values,
+                                    counts, cfg, n_blocks, tiers, pack,
+                                    seg_mask)
+    K = cfg.ncomp
+    v, c, slot = _packed_operands(state, values, counts, K, tiers, pack,
+                                  seg_mask)
+    if slot.device != v.device:
+        raise ValueError("CUDA kernel operands must all lie on one CUDA "
+                         f"device; got {slot.device} and {v.device}")
+    w, r, v, c = _cuda_inputs(state, v, c, K)
+    slot = slot.to(torch.int32).contiguous()
+    Bph, V = v.shape
+    W = torch.empty((pack * Bph, n_blocks, K), dtype=torch.float32,
+                    device=v.device)
+    R = torch.empty_like(W)
+    wf = torch.empty((pack * Bph, K), dtype=torch.float32, device=v.device)
+    rf = torch.empty_like(wf)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = _library().basicrta_segment_packed(
+        w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
+        slot.data_ptr(), W.data_ptr(), R.data_ptr(), wf.data_ptr(),
+        rf.data_ptr(), Bph, V, K, pack, tiers[0], tiers[1],
+        packed_group_size(Bph, V // _LANES, K, n_blocks, pack),
+        _int32(seed), _int32(sweep_offset), cfg.g, n_blocks,
+        cfg.alpha_eff, cfg.gamma_shape, cfg.gamma_rate, stream)
+    _raise_on(rc, "segment_packed")
+    segment_packed.launches += 1
+    return MixtureState(wf, rf), W, R
+
+
 sweep_stats.launches = 0
 segment.launches = 0
+segment_packed.launches = 0
 
 
 def pad_tiers_to_rows(tiers: Tuple[int, int], V: int) -> Tuple[int, int]:

@@ -36,7 +36,7 @@ def _times(n, seed, w=(0.85, 0.15), r=(2.0, 0.1)):
 def test_bucket_residues_equals_jax_pow2(sizes):
     times = {f"R{i}": _times(n, i) for i, n in enumerate(sizes)}
     times["empty"] = np.zeros(0)
-    got = batch.bucket_residues(times)
+    got = batch.bucket_residues(times, ladder="pow2")
     ref = jbatch.bucket_residues(times, ladder="pow2")
     assert len(got) == len(ref)
     for a, b in zip(got, ref):
@@ -65,7 +65,7 @@ def test_run_batch_draws_the_jax_fused_chain():
 
 def test_run_batch_checkpoint_resume(tmp_path):
     times = {"A1": _times(1500, 9)}
-    b = batch.bucket_residues(times)[0]
+    b = batch.bucket_residues(times, ladder="pow2")[0]
     cfg = GibbsConfig(ncomp=4, niter=60, g=10, seed=9)
     full = batch.run_batch(b, cfg, segment_blocks=2, engine="torch")
     ckpt = str(tmp_path / "ck.npz")
@@ -94,7 +94,7 @@ def test_run_batch_checkpoint_resume(tmp_path):
 def test_cuda_engine_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    b = batch.bucket_residues({"A1": _times(300, 1)})[0]
+    b = batch.bucket_residues({"A1": _times(300, 1)}, ladder="pow2")[0]
     cfg = GibbsConfig(ncomp=3, niter=20, g=10)
     with pytest.raises(RuntimeError, match="CUDA device"):
         batch.run_batch(b, cfg, engine="cuda")
@@ -212,8 +212,35 @@ def test_driver_input_errors(tmp_path):
 
 
 def test_from_jax_batch_refuses_packed_buckets():
+    """Packed and mixed buckets carry over with their layout; only a
+    malformed one (widths that do not match its pack or members) is
+    refused."""
+    import dataclasses
     times = {f"R{i}": _times(60, i) for i in range(40)}
     packed = [b for b in jbatch.bucket_residues(times) if b.pack > 1]
     assert packed
-    with pytest.raises(ValueError, match="unpacked"):
-        from_jax_batch(packed[0])
+    for jb in packed:
+        b = from_jax_batch(jb)
+        assert (b.pack, b.phys_rows) == (jb.pack, jb.phys_rows)
+    mixed = next(b for b in packed if b.bounds is not None)
+    bad = dataclasses.replace(mixed, bounds=mixed.bounds[:, :1])
+    with pytest.raises(ValueError, match="malformed"):
+        from_jax_batch(bad)
+
+
+def test_split_by_residue_equals_times_for_residue():
+    """The one-pass split gives every residue exactly the durations, in
+    table order, that a per-residue mask gives."""
+    rng = np.random.default_rng(4)
+    n = 5000
+    resids = rng.choice([3, 7, 11, 40, 41], size=n).astype(np.int32)
+    ev = ContactEvents(resids, np.zeros(n, np.int32), np.zeros(n),
+                       rng.random(n), ContactMeta(cutoff=7.0))
+    split = ev.split_by_residue()
+    assert sorted(split) == [3, 7, 11, 40, 41]
+    for r in (3, 7, 11, 40, 41):
+        np.testing.assert_array_equal(split[r], ev.times_for_residue(r))
+    some = ev.split_by_residue(np.array([7, 99]))
+    np.testing.assert_array_equal(some[7], ev.times_for_residue(7))
+    assert some[99].shape == (0,)
+    assert ev.times_per_residue().keys() == split.keys()
