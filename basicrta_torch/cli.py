@@ -3,9 +3,11 @@
 Three subcommands of ``basicrta_tpu.cli`` on the Gibbs main path::
 
     basicrta-torch gibbs --contacts contacts_7.0.npz [--resid 313] \
-        [--engine auto|cuda|torch]
+        [--engine cuda|torch]
     basicrta-torch status --cutoff 7.0
-    basicrta-torch cluster --cutoff 7.0
+    basicrta-torch cluster --cutoff 7.0 [--engine cuda|torch]
+
+Both run on the card unless ``--engine torch`` asks for the CPU.
 
 ``cluster`` writes the tau table (``tausout.npy``); figures wait for the
 port of the plotting module.
@@ -57,7 +59,8 @@ def _cmd_cluster(args):
     from basicrta_torch.protein.driver import ProcessProtein
 
     pp = ProcessProtein(cfg=GibbsConfig(niter=args.niter),
-                        cutoff=args.cutoff)
+                        cutoff=args.cutoff,
+                        device="cpu" if args.engine == "torch" else "cuda")
     if args.reprocess:
         pp.reprocess()
     if not pp.collect_results():
@@ -107,10 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "split-R-hat/ESS; 1 is the reference's single "
                         "chain)")
     g.add_argument("--seed", type=int, default=0)
-    g.add_argument("--engine", choices=["auto", "cuda", "torch"],
-                   default="auto",
-                   help="sweep engine: the fused CUDA kernel, or its plain "
-                        "PyTorch version (auto: cuda when a GPU is present)")
+    g.add_argument("--engine", choices=["cuda", "torch"], default="cuda",
+                   help="sweep engine: the fused CUDA kernels on the card "
+                        "(default), or their plain PyTorch versions on the "
+                        "CPU")
     g.set_defaults(fn=_cmd_gibbs)
 
     st = sub.add_parser("status", help="report per-residue result status")
@@ -122,6 +125,10 @@ def build_parser() -> argparse.ArgumentParser:
     cl.add_argument("--cutoff", type=float, required=True)
     cl.add_argument("--niter", type=int, default=110_000)
     cl.add_argument("--reprocess", action="store_true")
+    cl.add_argument("--engine", choices=["cuda", "torch"], default="cuda",
+                    help="where --reprocess (or a residue without a saved "
+                         "tau) post-processes: the card (default) or the "
+                         "CPU")
     cl.set_defaults(fn=_cmd_cluster)
     return p
 

@@ -11,6 +11,10 @@
 //                           _segment_masks): pack logical lanes in one
 //                           128-column physical lane, uniform or mixed
 //                           widths (a slot-id row per physical lane)
+//   the `tree` flag of all three -> K4, pallas_sweep.py _suff_stats_tree
+//                           with _tiered_binom: the multinomial by binary
+//                           splitting, log2(Kp) levels of node draws
+//                           instead of the chain's K-1 stages
 //
 // The samplers, the RNG and the precise f32 ops are in samplers.cuh.
 //
@@ -49,6 +53,13 @@
 //   * K3 keeps K2's per-column body and one block per physical lane, so a
 //     row's expensive binomial draws serve up to `pack` small residues;
 //     only the statistics split per slot (see segment_packed_kernel).
+//   * K4 (the tree) stays one thread per column: a column's splits are
+//     independent of the other columns', like the chain's stages. The
+//     thread keeps its column's Kp node counts in one array, splits each
+//     node (a, b) in place (left count at a, right at (a + b) / 2), level
+//     by level, and adds its K leaves into the same fixed-order per-sweep
+//     reduction, so N_k stays exact and resume stays bitwise. Each kernel
+//     is instantiated for both forms; the entry points take the flag.
 //
 // Entry points have a plain C interface (ctypes) and return
 // cudaGetLastError() after the launch.
@@ -67,24 +78,103 @@ struct Bucket {
   int B, V, K, head_rows, small_rows, G;
 };
 
-// Call sites of one sweep, in the reference's trace order.
+// Call sites of one sweep, in the reference's trace order. The chain
+// takes the singleton uniform, then K - 1 stages of (head tier sites,
+// small tier site); the tree takes log2(Kp) levels of (head tier sites,
+// small tier site, singleton site), only for the tiers the bucket has.
+// The conjugate draw's sites follow the last stage or level.
 struct Sites {
-  int single;   // singleton inverse-CDF uniform (if any singleton rows)
-  int base;     // sites before stage 0
-  int head;     // sites a head-tier stage takes
-  int stage;    // sites per stage
-  __device__ Sites(const Bucket& bk, bool h4) {
-    bool has_single = bk.V / kLanes > bk.small_rows;
+  int single;   // singleton inverse-CDF uniform of the chain
+  int base;     // sites before stage or level 0
+  int head;     // sites a head-tier stage or level takes
+  int stage;    // sites per stage or level
+  int steps;    // stages (K - 1) or levels (log2 Kp)
+  int kp;       // the tree's component count, K rounded up to a power of 2
+  __device__ Sites(const Bucket& bk, bool h4, bool tree) {
+    const bool has_single = bk.V / kLanes > bk.small_rows;
+    const bool has_small = bk.small_rows > bk.head_rows;
     single = 1;
-    base = has_single ? 1 : 0;
     head = bk.head_rows > 0 ? (h4 ? 3 + 2 * kBtrsUnroll : 3) : 0;
-    stage = head + (bk.small_rows > bk.head_rows ? 1 : 0);
+    kp = 1;
+    steps = 0;
+    while (kp < bk.K) {
+      kp *= 2;
+      ++steps;
+    }
+    if (tree) {
+      base = 0;
+      stage = head + (has_small ? 1 : 0) + (has_single ? 1 : 0);
+    } else {
+      base = has_single ? 1 : 0;
+      stage = head + (has_small ? 1 : 0);
+      steps = bk.K - 1;
+    }
   }
-  __device__ int gamma(int K) const { return base + (K - 1) * stage + 1; }
+  __device__ int gamma() const { return base + steps * stage + 1; }
+  // small tier and singleton sites of a tree level, after its head sites
+  __device__ int small_site(int level) const {
+    return base + level * stage + head + 1;
+  }
 };
 
-// This thread's partial (N_k, T_k) over its columns of lane b.
+// One column of one row through the tree: the Kp node counts split level
+// by level in nd[] (node (a, b) keeps its left count at a and puts its
+// right count at (a + b) / 2); then the K leaves into (Np, Tp).
+// Element ids fold the node index in before the tier's own row.
 template <bool kH4>
+__device__ void tree_column(const Bucket& bk, int row, uint32_t g, int col,
+                            const Rng& rng, const Sites& sites,
+                            const float* S, float cnt, float x, float* Np,
+                            float* Tp) {
+  const int K = bk.K, Kp = sites.kp;
+  const int tier = row < bk.head_rows ? 0 : (row < bk.small_rows ? 1 : 2);
+  const uint32_t trow = uint32_t(
+      tier == 0 ? row : (tier == 1 ? row - bk.head_rows
+                                   : row - bk.small_rows));
+  const int single_site_off = bk.small_rows > bk.head_rows ? 1 : 0;
+  float nd[kKMax];
+  nd[0] = cnt;
+  int level = 0;
+  for (int span = Kp; span > 1; span >>= 1, ++level) {
+    for (int a = 0; a < Kp; a += span) {
+      const int m = a + span / 2, e = a + span;
+      const float n = nd[a];
+      float left = 0.0f;
+      if (n > 0.0f) {  // a node of count 0 draws 0 in every tier
+        const float sa = a < K ? S[a] : 0.0f;
+        const float sm = m < K ? S[m] : 0.0f;
+        const float se = e < K ? S[e] : 0.0f;
+        const float p =
+            fminf(fmaxf((sa - sm) / fmaxf(sa - se, kTiny), 0.0f), 1.0f);
+        const uint32_t fe =
+            fmix(elem_id(uint32_t(a / span) * kElemMul + trow, g, col));
+        float draw;
+        if (tier == 0) {
+          draw = binom_full<kH4>(rng, sites.base + level * sites.stage, fe,
+                                 n, p);
+        } else if (tier == 1) {
+          draw = binom_inversion<true>(
+              rng.uniform(sites.small_site(level), 0, fe), n, p, kInvSmall);
+        } else {
+          const float u =
+              rng.uniform(sites.small_site(level) + single_site_off, 0, fe);
+          draw = u < p ? n : 0.0f;
+        }
+        left = fminf(draw, n);
+      }
+      nd[m] = n - left;
+      nd[a] = left;
+    }
+  }
+  for (int k = 0; k < K; ++k) {
+    Np[k] += nd[k];
+    Tp[k] += x * nd[k];
+  }
+}
+
+// This thread's partial (N_k, T_k) over its columns of lane b, by the
+// chain or (kTree) the tree.
+template <bool kH4, bool kTree>
 __device__ void suff_stats(const Bucket& bk, int b, const Rng& rng,
                            const Sites& sites, const float* wr,
                            const float* r, float* Np, float* Tp) {
@@ -106,6 +196,10 @@ __device__ void suff_stats(const Bucket& bk, int b, const Rng& rng,
     for (int k = K - 1; k >= 0; --k) {
       zsum = zsum + wr[k] * expf(-r[k] * x);
       S[k] = zsum;
+    }
+    if (kTree) {
+      tree_column<kH4>(bk, row, g, col, rng, sites, S, cnt, x, Np, Tp);
+      continue;
     }
     if (row >= bk.small_rows) {
       // singleton tier: category k iff S_k > u S_0 >= S_{k+1}
@@ -176,6 +270,7 @@ __host__ __device__ inline int smem_floats(int K) {
   return 3 * K + 2 * K * kWarps + 4 * K;
 }
 
+template <bool kTree>
 __global__ void __launch_bounds__(kLanes)
 sweep_stats_kernel(Bucket bk, const float* w0, const float* r0, float* ns,
                    float* ts, int seed) {
@@ -190,9 +285,9 @@ sweep_stats_kernel(Bucket bk, const float* w0, const float* r0, float* ns,
   }
   __syncthreads();
   const Rng rng = make_rng(uint32_t(seed), uint32_t(b / bk.G));
-  const Sites sites(bk, false);
+  const Sites sites(bk, false, kTree);
   float Np[kKMax], Tp[kKMax];
-  suff_stats<false>(bk, b, rng, sites, wr, r, Np, Tp);
+  suff_stats<false, kTree>(bk, b, rng, sites, wr, r, Np, Tp);
   block_reduce(Np, Tp, K, red, tot);
   if (tid < K) {
     ns[b * K + tid] = tot[tid];
@@ -200,6 +295,7 @@ sweep_stats_kernel(Bucket bk, const float* w0, const float* r0, float* ns,
   }
 }
 
+template <bool kTree>
 __global__ void __launch_bounds__(kLanes)
 segment_kernel(Bucket bk, const float* w0, const float* r0, float* W,
                float* R, float* wf, float* rf, int seed, int offset, int g,
@@ -212,7 +308,7 @@ segment_kernel(Bucket bk, const float* w0, const float* r0, float* W,
     w[tid] = w0[b * K + tid];
     r[tid] = r0[b * K + tid];
   }
-  const Sites sites(bk, true);
+  const Sites sites(bk, true, kTree);
   const uint32_t lane = uint32_t(b / bk.G), gi = uint32_t(b % bk.G);
   float Np[kKMax], Tp[kKMax];
   const int n_sweeps = n_blocks * g;
@@ -223,13 +319,13 @@ segment_kernel(Bucket bk, const float* w0, const float* r0, float* W,
     const Rng rng = make_rng(seed_sweep, lane);
     if (tid < K) wr[tid] = w[tid] * r[tid];
     __syncthreads();
-    suff_stats<true>(bk, b, rng, sites, wr, r, Np, Tp);
+    suff_stats<true, kTree>(bk, b, rng, sites, wr, r, Np, Tp);
     block_reduce(Np, Tp, K, red, tot);
     if (tid < 2 * K) {
       // the (2, G, K) tile of the reference: row 0 weights, row 1 rates
       const int row = tid / K, k = tid % K;
       const float a = (row == 0 ? alpha : ga) + tot[k];
-      g2[tid] = gamma_mt(rng, sites.gamma(K), fmix(elem_id(row, gi, k)), a);
+      g2[tid] = gamma_mt(rng, sites.gamma(), fmix(elem_id(row, gi, k)), a);
     }
     __syncthreads();
     if (tid < K) {
@@ -274,6 +370,7 @@ __host__ __device__ inline int packed_smem_floats(int K, int pack) {
 //   * the conjugate draw: 2 * pack * K Marsaglia-Tsang gammas looped over
 //     the block's threads, element ids of the reference's (2, pack, G, K)
 //     tile.
+template <bool kTree>
 __global__ void __launch_bounds__(kLanes)
 segment_packed_kernel(Bucket bk, int pack, const int* slot_ids,
                       const float* w0, const float* r0, float* W, float* R,
@@ -290,7 +387,7 @@ segment_packed_kernel(Bucket bk, int pack, const int* slot_ids,
     r[j] = r0[size_t(b) * PK + j];
   }
   const int own = sid[tid];
-  const Sites sites(bk, true);
+  const Sites sites(bk, true, kTree);
   const uint32_t lane = uint32_t(b / bk.G), gi = uint32_t(b % bk.G);
   float Np[kKMax], Tp[kKMax];
   const int n_sweeps = n_blocks * g;
@@ -300,7 +397,8 @@ segment_packed_kernel(Bucket bk, int pack, const int* slot_ids,
     const Rng rng = make_rng(seed_sweep, lane);
     for (int j = tid; j < PK; j += kLanes) wr[j] = w[j] * r[j];
     __syncthreads();
-    suff_stats<true>(bk, b, rng, sites, wr + own * K, r + own * K, Np, Tp);
+    suff_stats<true, kTree>(bk, b, rng, sites, wr + own * K, r + own * K, Np,
+                            Tp);
     for (int k = 0; k < K; ++k) {
       part[k * kPartStride + tid] = Np[k];
       part[(K + k) * kPartStride + tid] = Tp[k];
@@ -323,7 +421,7 @@ segment_packed_kernel(Bucket bk, int pack, const int* slot_ids,
       const float a = (row == 0 ? alpha : ga) + tot[s * K + k];
       const uint32_t fe =
           fmix(elem_id(uint32_t(row) * kElemMul + uint32_t(s), gi, k));
-      g2[j] = gamma_mt(rng, sites.gamma(K), fe, a);
+      g2[j] = gamma_mt(rng, sites.gamma(), fe, a);
     }
     __syncthreads();
     for (int j = tid; j < PK; j += kLanes) {
@@ -354,10 +452,11 @@ extern "C" int basicrta_sweep_stats(const float* w0, const float* r0,
                                     const float* values, const float* counts,
                                     float* ns, float* ts, int B, int V, int K,
                                     int head_rows, int small_rows, int G,
-                                    int seed, void* stream) {
+                                    int seed, int tree, void* stream) {
   Bucket bk{values, counts, B, V, K, head_rows, small_rows, G};
   size_t smem = sizeof(float) * smem_floats(K);
-  sweep_stats_kernel<<<B, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = tree ? sweep_stats_kernel<true> : sweep_stats_kernel<false>;
+  kernel<<<B, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       bk, w0, r0, ns, ts, seed);
   return static_cast<int>(cudaGetLastError());
 }
@@ -368,10 +467,11 @@ extern "C" int basicrta_segment(const float* w0, const float* r0,
                                 int B, int V, int K, int head_rows,
                                 int small_rows, int G, int seed, int offset,
                                 int g, int n_blocks, float alpha, float ga,
-                                float gb, void* stream) {
+                                float gb, int tree, void* stream) {
   Bucket bk{values, counts, B, V, K, head_rows, small_rows, G};
   size_t smem = sizeof(float) * smem_floats(K);
-  segment_kernel<<<B, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = tree ? segment_kernel<true> : segment_kernel<false>;
+  kernel<<<B, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       bk, w0, r0, W, R, wf, rf, seed, offset, g, n_blocks, alpha, ga, gb);
   return static_cast<int>(cudaGetLastError());
 }
@@ -383,11 +483,12 @@ extern "C" int basicrta_segment_packed(
     const float* counts, const int* slot_ids, float* W, float* R, float* wf,
     float* rf, int Bph, int V, int K, int pack, int head_rows,
     int small_rows, int G, int seed, int offset, int g, int n_blocks,
-    float alpha, float ga, float gb, void* stream) {
+    float alpha, float ga, float gb, int tree, void* stream) {
   Bucket bk{values, counts, Bph, V, K, head_rows, small_rows, G};
   size_t smem = sizeof(float) * packed_smem_floats(K, pack);
-  segment_packed_kernel<<<Bph, kLanes, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto kernel =
+      tree ? segment_packed_kernel<true> : segment_packed_kernel<false>;
+  kernel<<<Bph, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       bk, pack, slot_ids, w0, r0, W, R, wf, rf, seed, offset, g, n_blocks,
       alpha, ga, gb);
   return static_cast<int>(cudaGetLastError());

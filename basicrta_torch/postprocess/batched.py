@@ -39,7 +39,7 @@ from basicrta_torch.postprocess.clustering import (ClusterResult,
                                                    sort_labels_by_rate,
                                                    VOTE_CHUNK, votes_bucket)
 from basicrta_torch.postprocess.gmm import fit_predict_batched
-from basicrta_torch.sampler.batch import _next_pow2
+from basicrta_torch.sampler.batch import _next_pow2, resolve_engine
 
 _GMM_ELEMS = 1 << 26    # (residue x restart x row x component) per EM pass
 _VOTE_BATCH = 1 << 25   # vote entries of one pass, over its residues
@@ -121,15 +121,13 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
             counts (V,))} — the sampler's outputs and each residue's
             deduplicated times.
         chain: chain index or 'pooled' (cf. Gibbs.process_gibbs).
-        device: where the GMM and votes run (default: the CUDA device if
-            there is one, else the CPU).
+        device: where the GMM and votes run (default the card; the CPU
+            only when the caller asks for it).
 
     Returns:
         {residue: ClusterResult} (sorted labels, pindicator, presorts).
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    _, device = resolve_engine(None, device)
     b = cfg.burnin_samples
     prepared = {}
     for name, (mcw, mcr, values, counts) in items.items():

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from basicrta_tpu.ops.surv import empirical_ci
+from basicrta_torch.ops.surv import empirical_ci
 from basicrta_torch.postprocess.clustering import ClusterResult
 
 

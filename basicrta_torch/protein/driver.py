@@ -17,12 +17,12 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from basicrta_tpu.ops.surv import ci_bars
 from basicrta_torch.config import GibbsConfig
 from basicrta_torch.contacts.records import ContactEvents
+from basicrta_torch.ops.surv import ci_bars
 from basicrta_torch.postprocess.batched import process_residues_batched
 from basicrta_torch.postprocess.tau import AllNoiseError, estimate_params
-from basicrta_torch.sampler.batch import run_residues
+from basicrta_torch.sampler.batch import resolve_engine, run_residues
 from basicrta_torch.sampler.gibbs import Gibbs
 
 
@@ -30,8 +30,9 @@ def finish_batch(gibbs_by_label: Dict[str, Gibbs], chain=0,
                  save: bool = True, device=None) -> None:
     """Post-process every residue's samples in bucketed batches
     (:func:`~basicrta_torch.postprocess.batched.process_residues_batched`)
-    and fill each Gibbs with its clusters, parameters and tau; a residue
-    whose clusters are all noise records tau (0, 0, 0)."""
+    on ``device`` (default the card) and fill each Gibbs with its
+    clusters, parameters and tau; a residue whose clusters are all noise
+    records tau (0, 0, 0)."""
     if not gibbs_by_label:
         return
     items = {lab: (g.mcweights, g.mcrates, g._values, g._counts)
@@ -99,11 +100,12 @@ class ParallelGibbs:
         self.cfg = cfg
         self.root = root
 
-    def run(self, run_resids=None, engine: str = "auto", device=None,
-            progress_cb=None) -> Dict[str, Gibbs]:
+    def run(self, run_resids=None, engine: Optional[str] = None,
+            device=None, progress_cb=None) -> Dict[str, Gibbs]:
         """Sample all residues (or ``run_resids``) as lanes of the fused
         kernels on the engine's layout (see ``run_residues``), then
-        post-process them in bucketed batches."""
+        post-process them in bucketed batches on the same device."""
+        engine, device = resolve_engine(engine, device)
         all_resids = np.unique(self.events.sel1_resids)
         if run_resids is None:
             resids = all_resids
@@ -132,6 +134,7 @@ class ParallelGibbs:
             g = Gibbs(times[lab], residue=lab, cutoff=self.cutoff,
                       cfg=self.cfg, root=self.root)
             g.mcweights, g.mcrates = W, R
+            g.device = device
             out[lab] = g
         finish_batch(out, device=device)
         return out
@@ -139,13 +142,15 @@ class ParallelGibbs:
 
 class ProcessProtein:
     """Collect per-residue results and aggregate tau across the protein
-    (reference cluster.py:15-192)."""
+    (reference cluster.py:15-192); any post-processing runs on ``device``
+    (default the card)."""
 
     def __init__(self, cfg: GibbsConfig = GibbsConfig(), cutoff: float = 7.0,
-                 root: str = "."):
+                 root: str = ".", device=None):
         self.cfg = cfg
         self.cutoff = cutoff
         self.root = root
+        self.device = device
         self.residues: Dict[str, Optional[str]] = {}
 
     def __getitem__(self, item):
@@ -179,6 +184,7 @@ class ProcessProtein:
 
     def reprocess(self, device=None) -> None:
         """Re-run post-processing for every residue with results."""
+        device = self.device if device is None else device
         if not self.residues:
             self.collect_results()
         loaded = {}
@@ -202,6 +208,7 @@ class ProcessProtein:
             try:
                 g = Gibbs.load(path)
                 g.root = self.root
+                g.device = self.device
                 taus.append(list(g.tau) if g.tau is not None
                             else g.estimate_tau())
             except (AllNoiseError, KeyError, ValueError):

@@ -40,7 +40,7 @@ from basicrta_torch.sampler.kernels import (SMALL_NMAX, MixtureState,
                                             compute_tiers, dedup_times,
                                             init_mixture_params)
 
-ENGINES = ("auto", "cuda", "torch")
+ENGINES = ("cuda", "torch")
 
 
 def _next_pow2(n: int, floor: int = 128, step: int = 2) -> int:
@@ -515,24 +515,27 @@ def load_checkpoint(path: str, batch: ResidueBatch, cfg: GibbsConfig,
         return int(z["done_blocks"]), int(z["seg_idx"]), state, Ws, Rs
 
 
-def resolve_engine(engine: str, device=None) -> Tuple[str, torch.device]:
-    """Engine and device of a run: 'cuda' launches the kernel and needs a
-    CUDA device; 'torch' runs the plain version on ``device`` (default the
-    CPU); 'auto' is 'cuda' on a CUDA device and 'torch' on the CPU."""
+def resolve_engine(engine: Optional[str] = None,
+                   device=None) -> Tuple[str, torch.device]:
+    """Engine and device of a run: 'cuda' launches the fused kernels and
+    needs a CUDA device; 'torch' runs their plain versions on ``device``
+    (default the CPU). With no engine named the run takes 'cuda', or
+    'torch' when the caller gives a CPU ``device``: nothing falls back to
+    the CPU because no GPU was found."""
+    if engine is None:
+        cpu = device is not None and torch.device(device).type == "cpu"
+        engine = "torch" if cpu else "cuda"
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
     if device is None:
-        cuda = engine == "cuda" or (engine == "auto"
-                                    and torch.cuda.is_available())
-        device = torch.device("cuda" if cuda else "cpu")
+        device = "cuda" if engine == "cuda" else "cpu"
     device = torch.device(device)
-    if engine == "auto":
-        engine = "cuda" if device.type == "cuda" else "torch"
     if engine == "cuda" and (device.type != "cuda"
                              or not torch.cuda.is_available()):
         raise RuntimeError(f"engine 'cuda' needs a CUDA device; got "
                            f"{device} (cuda available: "
-                           f"{torch.cuda.is_available()})")
+                           f"{torch.cuda.is_available()}); pass "
+                           f"engine='torch' or device='cpu' for the CPU")
     return engine, device
 
 
@@ -569,8 +572,8 @@ def _kernel_layout(batch: ResidueBatch):
 def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
               segment_blocks: int = 100,
               checkpoint_path: Optional[str] = None,
-              checkpoint_cb=None, progress_cb=None, engine: str = "auto",
-              device=None) -> BatchResult:
+              checkpoint_cb=None, progress_cb=None,
+              engine: Optional[str] = None, device=None) -> BatchResult:
     """Run full chains for one bucket of residues.
 
     Args:
@@ -581,9 +584,9 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
             same for any segmentation.
         checkpoint_cb: optional ``f(segment_idx, state, (Ws, Rs))``.
         progress_cb: optional ``f(done_sweeps, total_sweeps)``.
-        engine: 'cuda' (the fused kernels), 'torch' (their plain versions)
-            or 'auto' (see :func:`resolve_engine`). Packed buckets run K3
-            (``segment_packed``), the others K2 (``segment``).
+        engine: 'cuda' (the fused kernels, the default) or 'torch' (their
+            plain versions; see :func:`resolve_engine`). Packed buckets
+            run K3 (``segment_packed``), the others K2 (``segment``).
         device: where the lanes live; defaults from the engine.
     """
     engine, device = resolve_engine(engine, device)
@@ -679,13 +682,13 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
 
 def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
                  n_chains: int = 1, checkpoint_dir: Optional[str] = None,
-                 ladder: Optional[str] = "auto",
+                 ladder: Optional[str] = "engine",
                  **kwargs) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     """All-residue driver: bucket, then run each bucket on the device.
 
     Chains are extra lanes (the residue repeated as ``name#chain``).
     Residues with no events are omitted. ``ladder`` picks the layout:
-    'auto' follows the engine as the JAX package does (the production
+    'engine' follows the engine as the JAX package does (the production
     layout for 'cuda', the pow2 ladder for 'torch'); None forces the
     production layout and 'pow2' the pow2 ladder. ``kwargs`` go to
     :func:`run_batch` (engine, device, progress_cb, segment_blocks).
@@ -698,9 +701,9 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
     expanded = {f"{name}#{ch}": t for name, t in nonempty.items()
                 for ch in range(n_chains)}
     out: Dict[str, list] = {name: [None] * n_chains for name in nonempty}
-    engine, _ = resolve_engine(kwargs.get("engine", "auto"),
-                               kwargs.get("device"))
-    if ladder == "auto":
+    engine, device = resolve_engine(kwargs.pop("engine", None),
+                                    kwargs.pop("device", None))
+    if ladder == "engine":
         ladder = None if engine == "cuda" else "pow2"
     for batch in bucket_residues(expanded, ladder=ladder):
         ckpt = None
@@ -708,7 +711,8 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
             os.makedirs(checkpoint_dir, exist_ok=True)
             key = _checkpoint_key(batch, cfg, f"basicrta_torch-{engine}")
             ckpt = os.path.join(checkpoint_dir, f"ckpt_{key}.npz")
-        res = run_batch(batch, cfg, checkpoint_path=ckpt, **kwargs)
+        res = run_batch(batch, cfg, checkpoint_path=ckpt, engine=engine,
+                        device=device, **kwargs)
         for i, lane_name in enumerate(res.names):
             name, ch = lane_name.rsplit("#", 1)
             out[name][int(ch)] = (res.mcweights[i], res.mcrates[i])

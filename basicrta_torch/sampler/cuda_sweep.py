@@ -15,6 +15,11 @@ from ``csrc/sweep.cu``:
   its own chain, sharing one 128-column physical lane in uniform or mixed
   widths. Replaces ``pallas_sweep._segment_pallas_packed``.
 
+``tree=True`` gives each of the three its binary-splitting form (K4,
+``pallas_sweep._suff_stats_tree``): the multinomial over the components
+in log2(Kp) levels of node draws instead of the K-1 stage chain.
+:func:`transcendentals_per_sweep` is the roofline's static count.
+
 Random numbers come from the JAX package's counter hash (``_hash_bits``)
 keyed by (seed, lane group, call-site tag, round, element id), with the
 same call-site numbering and element ids the Pallas kernels use in
@@ -332,8 +337,10 @@ class _Layout:
         self.fe_head = _tier_elems(B, G, 0, self.hh, device)
         self.fe_small = _tier_elems(B, G, self.hh, self.hs, device)
         self.fe_single = _tier_elems(B, G, self.hs, V, device)
+        self.G = G
         self.zeros = torch.zeros((B,) if pack == 1 else (B, pack),
                                  dtype=torch.float32, device=device)
+        self._node_elems = {}
         ar = lambda n: torch.arange(n, device=device,  # noqa: E731
                                     dtype=torch.int64)
         g = ar(B) % G
@@ -348,6 +355,27 @@ class _Layout:
             self.fe_gamma = _murmur_fmix(_element_ids(
                 i_s[None, :, :, None], g[:, None, None, None],
                 ar(K)[None, None, None, :]))
+
+    def node_elems(self, nodes: int):
+        """fmix(element id) of the tree's stacked (nodes, rows, G, 128)
+        draws, as (B, nodes, cols) per tier: the node index folds in
+        before the tier's own row, which restarts at 0 in each tier."""
+        if nodes not in self._node_elems:
+            B = self.lane.shape[0]
+            dev = self.lane.device
+            node = torch.arange(nodes, device=dev, dtype=torch.int64)
+            g = (torch.arange(B, device=dev, dtype=torch.int64)
+                 % self.G)[:, None, None]
+            tiles = []
+            for c0, c1 in ((0, self.hh), (self.hh, self.hs),
+                           (self.hs, self.V)):
+                cols = torch.arange(c0, c1, device=dev, dtype=torch.int64)
+                rows = (node[:, None] * _ELEM_MUL
+                        + (cols - c0)[None, :] // _LANES) & _M32
+                tiles.append(_murmur_fmix(_element_ids(
+                    rows[None], g, (cols % _LANES)[None, None, :])))
+            self._node_elems[nodes] = tiles
+        return self._node_elems[nodes]
 
 
 def _suffix_sums(v, w, r, K: int):
@@ -429,6 +457,62 @@ def _suff_stats(rng: _Rng, lay: _Layout, v, c, w, r, K: int, h4: bool,
     return torch.stack(ns_list, -1), torch.stack(ts_list, -1)
 
 
+def _tiered_binom(rng: _Rng, lay: _Layout, n, p, h4: bool):
+    """Tier-dispatched binomial draws of one tree level's stacked
+    (B, nodes, V) node counts (``pallas_sweep._tiered_binom``): the head
+    tier's general binomial, the small tier's 17-step inversion, and a
+    Bernoulli ``u < p`` per node for the singleton tier."""
+    hh, hs, V = lay.hh, lay.hs, lay.V
+    fe_head, fe_small, fe_single = lay.node_elems(n.shape[1])
+    parts = []
+    if hh > 0:
+        parts.append(_binom_full(rng, fe_head, n[..., :hh], p[..., :hh], h4))
+    if hs > hh:
+        u = rng.uniform(fe_small)
+        parts.append(_binom_inversion(u, n[..., hh:hs], p[..., hh:hs],
+                                      _INV_SMALL, nmax_bits=5))
+    if V > hs:
+        u = rng.uniform(fe_single)
+        parts.append(n[..., hs:] * (u < p[..., hs:]).to(torch.float32))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
+
+def _suff_stats_tree(rng: _Rng, lay: _Layout, v, c, w, r, K: int, h4: bool,
+                     reduce=_lane_sums):
+    """Sufficient statistics by binary multinomial splitting
+    (``pallas_sweep._suff_stats_tree``): the components, padded with
+    empty ones to Kp = the next power of two, split in half level by
+    level, every node of a level drawn in one stacked binomial call, so
+    log2(Kp) levels replace the chain's K - 1 stages. Returns (B, K), or
+    (B, pack, K) with K3's per-slot ``reduce``."""
+    z = _suffix_sums(v, w, r, K)
+    Kp = 1
+    while Kp < K:
+        Kp *= 2
+    zero = torch.zeros_like(v)
+
+    def S(k):
+        return z[k] if k < K else zero
+
+    nodes = [(0, Kp, c)]                       # (a, b, counts) in order
+    while len(nodes) < Kp:
+        pairs = [(a, (a + b) // 2, b, n) for a, b, n in nodes]
+        num = torch.stack([S(a) - S(m) for a, m, _, _ in pairs], 1)
+        den = torch.stack([S(a) - S(b) for a, _, b, _ in pairs], 1)
+        p = torch.clamp(num / torch.clamp_min(den, _TINY), 0.0, 1.0)
+        n_st = torch.stack([n for _, _, _, n in pairs], 1)
+        draws = _tiered_binom(rng, lay, n_st, p, h4)
+        nxt = []
+        for i, (a, m, b, n) in enumerate(pairs):
+            left = torch.minimum(draws[:, i], n)
+            nxt.append((a, m, left))
+            nxt.append((m, b, n - left))
+        nodes = nxt
+    sums = [reduce(n, v) for _, _, n in nodes[:K]]
+    return (torch.stack([x for x, _ in sums], -1),
+            torch.stack([t for _, t in sums], -1))
+
+
 def _conjugate(rng: _Rng, lay: _Layout, ns, ts, alpha: float, ga: float,
                gb: float):
     """Dirichlet/Gamma conjugate draw from the sweep's statistics: one
@@ -466,39 +550,50 @@ def _check(state: MixtureState, values, counts, K: int,
 
 
 def sweep_stats_torch(seed: int, state: MixtureState, values, counts,
-                      K: int, tiers: Tuple[int, int]):
+                      K: int, tiers: Tuple[int, int], tree: bool = False):
     """Plain version of K1: (Ns, Ts), each (B, K), of one sweep.
 
     Draw for draw the JAX ``sweep_stats`` in interpret mode (its default
-    lgamma-form BTRS). ``tiers`` are row tiers (``pad_tiers_to_rows``)."""
+    lgamma-form BTRS); ``tree`` takes the binary-splitting multinomial
+    (K4). ``tiers`` are row tiers (``pad_tiers_to_rows``)."""
     _check(state, values, counts, K, tiers)
     sweep_stats_torch.calls += 1
     B, V = values.shape
     lay = _Layout(B, V, K, tiers, group_size(B, V, K + 3), values.device)
     rng = _Rng(int(seed), lay.lane)
-    return _suff_stats(rng, lay, values, counts, state.weights,
-                       state.rates, K, h4=False)
+    stats = _suff_stats_tree if tree else _suff_stats
+    return stats(rng, lay, values, counts, state.weights, state.rates, K,
+                 h4=False)
+
+
+def rows_per_lane(K: int, tree: bool) -> int:
+    """The reference's VMEM row budget of a K2/K3 lane: the suffix sums
+    plus the chain's temporaries, ~3x more at the tree's widest level."""
+    return 3 * K + 12 if tree else K + 12
 
 
 def segment_torch(seed: int, sweep_offset: int, state: MixtureState,
                   values, counts, cfg: GibbsConfig, n_blocks: int,
-                  tiers: Tuple[int, int]):
+                  tiers: Tuple[int, int], tree: bool = False):
     """Plain version of K2: ``n_blocks * cfg.g`` sweeps from ``state``.
 
     Every sweep reseeds from ``seed * 2654435761 + absolute sweep`` (int32
     wrap-around), so any segmentation of a run gives the same chain.
+    ``tree`` draws the statistics by binary splitting (K4).
     Returns (state, W, R) with W/R (B, n_blocks, K) thinned samples."""
     K = cfg.ncomp
     _check(state, values, counts, K, tiers)
     segment_torch.calls += 1
     B, V = values.shape
-    lay = _Layout(B, V, K, tiers, group_size(B, V, K + 12), values.device)
+    lay = _Layout(B, V, K, tiers, group_size(B, V, rows_per_lane(K, tree)),
+                  values.device)
+    stats = _suff_stats_tree if tree else _suff_stats
     w, r = state.weights, state.rates
     W, R = [], []
     for i in range(n_blocks * cfg.g):
         seed_sweep = (int(seed) * 2654435761 + int(sweep_offset) + i) & _M32
         rng = _Rng(seed_sweep, lay.lane)
-        ns, ts = _suff_stats(rng, lay, values, counts, w, r, K, h4=True)
+        ns, ts = stats(rng, lay, values, counts, w, r, K, h4=True)
         w, r = _conjugate(rng, lay, ns, ts, cfg.alpha_eff, cfg.gamma_shape,
                           cfg.gamma_rate)
         if (i + 1) % cfg.g == 0:
@@ -522,11 +617,13 @@ def packed_row_tiers(tiers: Tuple[int, int], seg_width: int,
 
 
 def packed_group_size(Bph: int, SL: int, K: int, n_blocks: int, pack: int,
-                      group_cap: Optional[int] = None) -> int:
+                      group_cap: Optional[int] = None,
+                      tree: bool = False) -> int:
     """Physical lanes per group G of the reference's packed layout
     (``pallas_sweep._segment_pallas_packed``). Its budget counts the
     thinned outputs too, so G depends on ``n_blocks`` and ``pack``."""
-    per_lane = (K + 12) * SL * _LANES * 4 + 2 * n_blocks * pack * K * 4
+    per_lane = (rows_per_lane(K, tree) * SL * _LANES * 4
+                + 2 * n_blocks * pack * K * 4)
     g_fit = max(8, ((12 * 2 ** 20) // max(1, per_lane)) // 8 * 8)
     cap = int(min(group_cap or _GROUP, g_fit))
     NG = -(-Bph // cap)
@@ -591,7 +688,8 @@ def _slot_sums(masks):
 
 def segment_packed_torch(seed: int, sweep_offset: int, state: MixtureState,
                          values, counts, cfg: GibbsConfig, n_blocks: int,
-                         tiers: Tuple[int, int], pack: int, seg_mask=None):
+                         tiers: Tuple[int, int], pack: int, seg_mask=None,
+                         tree: bool = False):
     """Plain version of K3: ``n_blocks * cfg.g`` sweeps of packed lanes.
 
     Draw for draw the JAX ``segment_pallas(..., pack=pack,
@@ -599,6 +697,7 @@ def segment_packed_torch(seed: int, sweep_offset: int, state: MixtureState,
     slot's (w, r) in the suffix sums; the binomial chain runs on the
     physical rows as in K2; the statistics reduce rows first, then each
     slot's columns; the conjugate draw runs on a (2, pack, G, K) tile.
+    ``tree`` splits the physical rows by binary splitting instead (K4).
     ``tiers`` are physical row tiers (:func:`packed_row_tiers`, or the
     mixed layout's). Returns (state, W, R), slot-ordered, W/R
     (pack * Bph, n_blocks, K)."""
@@ -607,7 +706,8 @@ def segment_packed_torch(seed: int, sweep_offset: int, state: MixtureState,
                                   seg_mask)
     segment_packed_torch.calls += 1
     Bph, V = v.shape
-    G = packed_group_size(Bph, V // _LANES, K, n_blocks, pack)
+    G = packed_group_size(Bph, V // _LANES, K, n_blocks, pack, tree=tree)
+    stats = _suff_stats_tree if tree else _suff_stats
     lay = _Layout(Bph, V, K, tiers, G, v.device, pack)
     masks = (slot[:, None, :] == torch.arange(pack, device=v.device)[
         None, :, None]).to(torch.float32)                  # (Bph, pack, 128)
@@ -621,8 +721,8 @@ def segment_packed_torch(seed: int, sweep_offset: int, state: MixtureState,
         rng = _Rng(seed_sweep, lay.lane)
         w_col = torch.gather(w.transpose(1, 2), 2, col_slot)  # (Bph, K, V)
         r_col = torch.gather(r.transpose(1, 2), 2, col_slot)
-        ns, ts = _suff_stats(rng, lay, v, c, w_col, r_col, K, h4=True,
-                             reduce=reduce)
+        ns, ts = stats(rng, lay, v, c, w_col, r_col, K, h4=True,
+                       reduce=reduce)
         w, r = _conjugate(rng, lay, ns, ts, cfg.alpha_eff, cfg.gamma_shape,
                           cfg.gamma_rate)
         if (i + 1) % cfg.g == 0:
@@ -697,14 +797,14 @@ def _library():
         lib = ctypes.CDLL(build_library())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.basicrta_sweep_stats.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                             i, i, i, p]
+                                             i, i, i, i, p]
         lib.basicrta_sweep_stats.restype = i
         lib.basicrta_segment.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                         i, i, i, i, i, i, i, f, f, f, p]
+                                         i, i, i, i, i, i, i, f, f, f, i, p]
         lib.basicrta_segment.restype = i
         lib.basicrta_segment_packed.argtypes = [p, p, p, p, p, p, p, p, p,
                                                 i, i, i, i, i, i, i, i, i,
-                                                i, i, f, f, f, p]
+                                                i, i, f, f, f, i, p]
         lib.basicrta_segment_packed.restype = i
         _lib = lib
     return _lib
@@ -727,14 +827,23 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def _count_launch(fn, tree: bool):
+    """One more launch of ``fn``'s kernel, or of its tree form (K4)."""
+    if tree:
+        fn.tree_launches += 1
+    else:
+        fn.launches += 1
+
+
 def sweep_stats(seed: int, state: MixtureState, values, counts, K: int,
-                tiers: Tuple[int, int]):
-    """K1: (Ns, Ts), each (B, K), of one collapsed sweep of every lane.
+                tiers: Tuple[int, int], tree: bool = False):
+    """K1: (Ns, Ts), each (B, K), of one collapsed sweep of every lane;
+    ``tree`` launches its binary-splitting form (K4).
 
     CPU tensors run :func:`sweep_stats_torch`; CUDA tensors launch the
     kernel. ``tiers`` are row tiers (``pad_tiers_to_rows``)."""
     if values.device.type == "cpu":
-        return sweep_stats_torch(seed, state, values, counts, K, tiers)
+        return sweep_stats_torch(seed, state, values, counts, K, tiers, tree)
     _check(state, values, counts, K, tiers)
     w, r, v, c = _cuda_inputs(state, values, counts, K)
     B, V = v.shape
@@ -744,21 +853,23 @@ def sweep_stats(seed: int, state: MixtureState, values, counts, K: int,
     rc = _library().basicrta_sweep_stats(
         w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
         ns.data_ptr(), ts.data_ptr(), B, V, K, tiers[0], tiers[1],
-        group_size(B, V, K + 3), _int32(seed), stream)
+        group_size(B, V, K + 3), _int32(seed), int(tree), stream)
     _raise_on(rc, "sweep_stats")
-    sweep_stats.launches += 1
+    _count_launch(sweep_stats, tree)
     return ns, ts
 
 
 def segment(seed: int, sweep_offset: int, state: MixtureState, values,
-            counts, cfg: GibbsConfig, n_blocks: int, tiers: Tuple[int, int]):
-    """K2: advance every lane ``n_blocks * cfg.g`` sweeps in one launch.
+            counts, cfg: GibbsConfig, n_blocks: int, tiers: Tuple[int, int],
+            tree: bool = False):
+    """K2: advance every lane ``n_blocks * cfg.g`` sweeps in one launch;
+    ``tree`` launches its binary-splitting form (K4).
 
     CPU tensors run :func:`segment_torch`; CUDA tensors launch the kernel.
     Returns (state, W, R) with W/R (B, n_blocks, K) thinned samples."""
     if values.device.type == "cpu":
         return segment_torch(seed, sweep_offset, state, values, counts, cfg,
-                             n_blocks, tiers)
+                             n_blocks, tiers, tree)
     K = cfg.ncomp
     _check(state, values, counts, K, tiers)
     w, r, v, c = _cuda_inputs(state, values, counts, K)
@@ -771,11 +882,12 @@ def segment(seed: int, sweep_offset: int, state: MixtureState, values,
     rc = _library().basicrta_segment(
         w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
         W.data_ptr(), R.data_ptr(), wf.data_ptr(), rf.data_ptr(),
-        B, V, K, tiers[0], tiers[1], group_size(B, V, K + 12),
-        _int32(seed), _int32(sweep_offset), cfg.g, n_blocks,
-        cfg.alpha_eff, cfg.gamma_shape, cfg.gamma_rate, stream)
+        B, V, K, tiers[0], tiers[1],
+        group_size(B, V, rows_per_lane(K, tree)), _int32(seed),
+        _int32(sweep_offset), cfg.g, n_blocks, cfg.alpha_eff,
+        cfg.gamma_shape, cfg.gamma_rate, int(tree), stream)
     _raise_on(rc, "segment")
-    segment.launches += 1
+    _count_launch(segment, tree)
     return MixtureState(wf, rf), W, R
 
 
@@ -787,9 +899,11 @@ def _int32(x: int) -> int:
 
 def segment_packed(seed: int, sweep_offset: int, state: MixtureState,
                    values, counts, cfg: GibbsConfig, n_blocks: int,
-                   tiers: Tuple[int, int], pack: int, seg_mask=None):
+                   tiers: Tuple[int, int], pack: int, seg_mask=None,
+                   tree: bool = False):
     """K3: advance every packed logical lane ``n_blocks * cfg.g`` sweeps
-    in one launch (operands as :func:`segment_packed_torch`).
+    in one launch (operands as :func:`segment_packed_torch`); ``tree``
+    launches its binary-splitting form (K4).
 
     CPU tensors run :func:`segment_packed_torch`; CUDA tensors launch the
     kernel. Returns (state, W, R), slot-ordered, W/R
@@ -797,7 +911,7 @@ def segment_packed(seed: int, sweep_offset: int, state: MixtureState,
     if values.device.type == "cpu":
         return segment_packed_torch(seed, sweep_offset, state, values,
                                     counts, cfg, n_blocks, tiers, pack,
-                                    seg_mask)
+                                    seg_mask, tree)
     K = cfg.ncomp
     v, c, slot = _packed_operands(state, values, counts, K, tiers, pack,
                                   seg_mask)
@@ -817,17 +931,17 @@ def segment_packed(seed: int, sweep_offset: int, state: MixtureState,
         w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
         slot.data_ptr(), W.data_ptr(), R.data_ptr(), wf.data_ptr(),
         rf.data_ptr(), Bph, V, K, pack, tiers[0], tiers[1],
-        packed_group_size(Bph, V // _LANES, K, n_blocks, pack),
+        packed_group_size(Bph, V // _LANES, K, n_blocks, pack, tree=tree),
         _int32(seed), _int32(sweep_offset), cfg.g, n_blocks,
-        cfg.alpha_eff, cfg.gamma_shape, cfg.gamma_rate, stream)
+        cfg.alpha_eff, cfg.gamma_shape, cfg.gamma_rate, int(tree), stream)
     _raise_on(rc, "segment_packed")
-    segment_packed.launches += 1
+    _count_launch(segment_packed, tree)
     return MixtureState(wf, rf), W, R
 
 
-sweep_stats.launches = 0
-segment.launches = 0
-segment_packed.launches = 0
+for _fn in (sweep_stats, segment, segment_packed):
+    _fn.launches = 0        # the chain forms' kernels (K1, K2, K3)
+    _fn.tree_launches = 0   # their tree forms (K4)
 
 
 def pad_tiers_to_rows(tiers: Tuple[int, int], V: int) -> Tuple[int, int]:
@@ -837,3 +951,43 @@ def pad_tiers_to_rows(tiers: Tuple[int, int], V: int) -> Tuple[int, int]:
     head = min(up(tiers[0]), V // _LANES)
     small = min(max(up(tiers[1]), head), V // _LANES)
     return head, small
+
+
+def transcendentals_per_sweep(B: int, V: int, pack: int,
+                              tiers: Tuple[int, int], K: int,
+                              phys: Optional[Tuple[int, ...]] = None) -> int:
+    """Static count of the exp/log/sqrt one sweep of a bucket executes,
+    padded lanes and columns included (``pallas_sweep.
+    transcendentals_per_sweep``, exactly): the roofline numerator of
+    ``vpu_transcendental_util``.
+
+    Per physical row and component step: K exps per element for the
+    suffix sums; a head row pays the inversion's exp + log, ~6 BTRS rounds
+    of ~5 log/sqrt and the 2-lgamma setup; a small row exp + log;
+    singleton rows none. The conjugate draw adds ~3 per Marsaglia-Tsang
+    round over the (pack, G, K) state. ``phys`` is a mixed bucket's
+    (SL, head_rows, small_rows[, Bph]) physical layout; ``tiers`` are
+    column tiers otherwise."""
+    if phys is not None:
+        SL, head, small = phys[:3]
+        Bph = phys[3] if len(phys) > 3 else -(-B // pack)
+    elif pack > 1:
+        W = _LANES // pack
+        SL = V // W
+        head, small = packed_row_tiers(tiers, W, SL)
+        Bph = -(-B // pack)
+    else:
+        SL = max(V // _LANES, 1)
+        head, small = pad_tiers_to_rows(tiers, max(V, _LANES))
+        Bph = B
+    # padded physical lane count (the reference layout's G choice)
+    NG = -(-Bph // _GROUP)
+    G = max(8, (-(-Bph // NG) + 7) // 8 * 8)
+    lanes = NG * G
+    suffix = K * SL * _LANES                          # exps per lane
+    chain = 0
+    for _ in range(K - 1):
+        chain += head * _LANES * (2 + 6 * 5 + 5)        # head rows
+        chain += max(small - head, 0) * _LANES * 2      # small rows
+    conj = 2 * pack * K * (_MT_ROUNDS * 3 + 2)        # per physical lane
+    return int(lanes * (suffix + chain + conj))

@@ -18,8 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from basicrta_tpu.ops.surv import infer_timestep
 from basicrta_torch.config import GibbsConfig
+from basicrta_torch.ops.surv import infer_timestep
 from basicrta_torch.postprocess.clustering import (ClusterResult,
                                                    process_samples)
 from basicrta_torch.postprocess.tau import estimate_params, estimate_tau
@@ -44,6 +44,7 @@ class Gibbs:
         self.cutoff = cutoff
         self.root = root
         self.times = None if times is None else np.asarray(times, np.float64)
+        self.device = None  # where run() sampled; post-processing follows
         self.ts = infer_timestep(self.times) if times is not None else None
         self.mcweights: Optional[np.ndarray] = None  # (chains, S, K)
         self.mcrates: Optional[np.ndarray] = None
@@ -66,21 +67,25 @@ class Gibbs:
         return os.path.join(self.root, f"basicrta-{self.cutoff}",
                             str(self.residue))
 
-    def run(self, engine: str = "auto", device=None,
+    def run(self, engine: Optional[str] = None, device=None,
             save: bool = True) -> "Gibbs":
         """Sample ``cfg.n_chains`` chains as lanes of the fused kernel
-        ('cuda'), or its plain version ('torch'); 'auto' picks by device."""
+        ('cuda', the default, on the card), or of its plain version
+        ('torch', or a CPU ``device``); see ``resolve_engine``."""
+        engine, self.device = resolve_engine(engine, device)
         samples = run_residues({str(self.residue): self.times}, self.cfg,
                                n_chains=self.cfg.n_chains, engine=engine,
-                               device=device)
+                               device=self.device)
         self.mcweights, self.mcrates = samples[str(self.residue)]
         if save:
             self.save()
         return self
 
     def _generator(self, offset: int, device=None) -> torch.Generator:
-        """Seeded generator of one post-processing stage of this residue."""
-        _, device = resolve_engine("auto", device)
+        """Seeded generator of one post-processing stage of this residue,
+        on ``device``, else where :meth:`run` sampled, else the card."""
+        _, device = resolve_engine(
+            None, device if device is not None else self.device)
         gen = torch.Generator(device=device)
         gen.manual_seed((self.cfg.seed + offset) * 1_000_003
                         + self._residue_fold())
@@ -118,7 +123,7 @@ class Gibbs:
 
     def diagnostics(self) -> dict:
         """Split-R̂ and bulk ESS of the live components over the chains."""
-        from basicrta_tpu.ops.diagnostics import convergence_report
+        from basicrta_torch.ops.diagnostics import convergence_report
         return convergence_report(
             self.mcweights, self.mcrates,
             burnin_samples=self.cfg.burnin_samples,

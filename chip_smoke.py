@@ -13,7 +13,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    bucket of >= 256 lanes; K3 on protein-300's production bucket with the
    most physical lanes (mixed widths, pack >= 4) and on a uniform pack-2
    multi-row bucket, each with a bitwise resume check.
-3. the protein: 300 residues (bench.py's make_workload recipe) x 2 chains
+3. the protein: 300 residues (basicrta_torch.scripts.workload) x 2 chains
    through the CLI ``gibbs`` (10,000 sweeps, one production segment) and
    ``cluster`` commands, on the production layout (K3 for the packed
    buckets, K2 for any unpacked one) with bucketed post-processing; every
@@ -29,9 +29,20 @@ Phases (each raises on failure, so any failure exits non-zero):
    flagship residue at the default GibbsConfig (110,000 sweeps).
 5. the device-PRNG probe (K5) against its plain version (uniform bits
    identical), then the goodness-of-fit battery on the kernel's draws.
+6. the tree multinomial (K4) in its three kernel forms against the plain
+   tree: K1's and K2's on phase 2's pow2 buckets, K3's on its packed
+   buckets, with K1-K3's pass rules and bitwise resume; exact totals and
+   the moment check over 8 seeds; then the kernel A/B
+   (``basicrta_torch.scripts.abench``) of ``full`` against ``tree_nat`` on
+   protein-300's production layout, 2,000 sweeps, 3 reps.
+7. the transcendental ceiling (K6) against its plain version (rtol 1e-6),
+   the ceiling in exp/s beside the SFU peak, ``vpu_transcendental_util``
+   of phase 3's production and pow2 layouts, and each kernel's bound.
 
-Output: one JSON line of per-kernel results, the card's ``nvidia-smi``
-name/power line, and last ``{"ok": true, "device": {...}}``. Without a
+Output: one JSON line of per-kernel results (each with its bound, and the
+time of one PyTorch call that computes the same function where there is
+one), the card's ``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``. Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -46,40 +57,9 @@ import time
 
 import numpy as np
 
-W313_EVENTS = 446_605
-N_RESIDUES = 300
 PROTEIN_SWEEPS = 10_000   # one production segment (bench.py TIMED_SWEEPS)
-
-
-def simulate_hyperexp(n, weights, rates, rng):
-    """Sorted hyperexponential draws (basicrta_tpu.ops.surv recipe)."""
-    weights = np.asarray(weights, np.float64)
-    rates = np.asarray(rates, np.float64)
-    comp = rng.choice(len(weights), size=int(n), p=weights / weights.sum())
-    x = -np.log(rng.random(int(n))) / rates[comp]
-    x.sort()
-    return x
-
-
-def discretize(times, ts=0.1):
-    return np.maximum(np.round(np.asarray(times) / ts), 1.0) * ts
-
-
-def make_workload(n_residues=N_RESIDUES, seed=0):
-    """bench.py's synthetic all-residue workload: one W313-scale flagship
-    and log-uniform 10^2..10^5.3-event residues."""
-    rng = np.random.default_rng(seed)
-    w = np.array([0.87, 0.09, 0.03, 0.009, 0.001])
-    r = np.array([4.7, 1.3, 0.33, 0.06, 0.009])
-    sizes = np.concatenate([
-        [W313_EVENTS],
-        (10 ** rng.uniform(2.0, 5.3, n_residues - 1)).astype(int)])
-    residues = {}
-    for i, n in enumerate(sizes):
-        scale = rng.uniform(0.7, 1.5)
-        residues[i] = discretize(simulate_hyperexp(int(n), w, r * scale,
-                                                   rng))
-    return residues
+AB_SWEEPS, AB_REPS = 2000, 3   # phase 6's kernel A/B (scripts/abench.py)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 
 
 def require(cond, what):
@@ -102,17 +82,18 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_checks(workload):
-    """Phase 2: K1 and K2 against their plain versions on the card."""
+def _agree(W, R, W2, R2, rows=None):
+    """Fraction of lanes whose thinned (W, R) agree at rtol 1e-4."""
     import torch
-    from basicrta_torch.config import GibbsConfig
-    from basicrta_torch.sampler import cuda_sweep as cs
-    from basicrta_torch.sampler.batch import bucket_residues
-    from basicrta_torch.sampler.kernels import MixtureState, \
-        init_mixture_params
+    ok = (torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1)
+          & torch.isclose(R, R2, rtol=1e-4).flatten(1).all(1))
+    return (ok if rows is None else ok[rows]).float().mean().item()
 
-    dev = torch.device("cuda")
-    K = 15
+
+def pow2_buckets(workload):
+    """K1/K2's buckets: the flagship residue x 2 chains on the pow2 ladder
+    (2 x 1024) and a 128-column bucket of >= 256 lanes."""
+    from basicrta_torch.sampler.batch import bucket_residues
     flag = bucket_residues({"R0#0": workload[0], "R0#1": workload[0]},
                            ladder="pow2")
     require(len(flag) == 1 and flag[0].values.shape == (2, 1024),
@@ -124,8 +105,46 @@ def kernel_checks(workload):
                             for c in range(chains)}, ladder="pow2")
     require(len(b128) == 1 and b128[0].values.shape[1] == 128
             and b128[0].size >= 256, "128-column bucket")
+    return (("flagship", flag[0]), ("b128", b128[0]))
+
+
+def packed_bytes(v, Bs, K):
+    """Bytes one 10-sweep K3 launch must move: physical values and counts,
+    the slot ids, the state in, one thinned block and the final state."""
+    return int(8 * v.numel() + 4 * 128 * v.shape[0] + 24 * Bs * K)
+
+
+def packed_buckets(workload):
+    """K3's buckets: protein-300 x 2 chains' production bucket with the
+    most physical lanes (mixed widths, pack >= 4) and the widest uniform
+    pack-2 bucket."""
+    from basicrta_torch.sampler import batch
+    lanes = {f"R{i}#{c}": t for i, t in workload.items() for c in range(2)}
+    mixed = max((b for b in batch.bucket_residues(lanes)
+                 if b.bounds is not None), key=lambda b: len(b.bounds))
+    require(mixed.pack >= 4, f"largest production bucket packs "
+            f"{mixed.pack}-way")
+    uniform = max((b for b in batch.bucket_residues(lanes, consolidate=False)
+                   if b.pack == 2), key=lambda b: b.values.shape[1])
+    require(uniform.values.shape[1] > 64, "uniform pack-2 bucket is one row")
+    return (("mixed", mixed), ("uniform_p2", uniform))
+
+
+def kernel_checks(workload):
+    """Phase 2: K1 and K2 against their plain versions on the card."""
+    import torch
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.sampler import cuda_sweep as cs
+    from basicrta_torch.scripts.roofline import needed_transcendentals
+    from basicrta_torch.sampler.kernels import MixtureState, \
+        init_mixture_params
+
+    dev = torch.device("cuda")
+    K = 15
+    buckets = pow2_buckets(workload)
+    flag = [buckets[0][1]]
     report = {}
-    for label, batch in (("flagship", flag[0]), ("b128", b128[0])):
+    for label, batch in buckets:
         B, V = batch.values.shape
         v = torch.tensor(batch.values, dtype=torch.float32, device=dev)
         c = torch.tensor(batch.counts, dtype=torch.float32, device=dev)
@@ -144,9 +163,7 @@ def kernel_checks(workload):
         cfg1 = GibbsConfig(ncomp=K, niter=2, g=1)
         _, W, R = cs.segment(11, 0, st, v, c, cfg1, 2, tiers)
         _, W2, R2 = cs.segment_torch(11, 0, st, v, c, cfg1, 2, tiers)
-        lane_ok = (torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1)
-                   & torch.isclose(R, R2, rtol=1e-4).flatten(1).all(1))
-        agree = lane_ok.float().mean().item()
+        agree = _agree(W, R, W2, R2)
         require(agree >= 0.95, f"{label} K2 lanes agreeing {agree:.4f}")
         k2_err = max((W - W2).abs().max().item(),
                      (R - R2).abs().max().item())
@@ -162,6 +179,10 @@ def kernel_checks(workload):
         k2_plain = cuda_ms(
             lambda: cs.segment_torch(11, 0, st, v, c, cfg10, 1, tiers), 1)
         report[label] = dict(B=B, V=V, tiers=tiers, k1_same=same,
+                             bytes=int(8 * B * V + 16 * B * K),
+                             work=needed_transcendentals(c, B, K),
+                             work_k1=needed_transcendentals(
+                                 c, B, K, conjugate=False),
                              k1_launches=k1_launches,
                              k1_err=k1_err, k2_agree=agree, k2_err=k2_err,
                              k1_ms=k1_ms, k1_plain_ms=k1_plain,
@@ -215,19 +236,12 @@ def packed_checks(workload):
     from basicrta_torch.sampler import cuda_sweep as cs
     from basicrta_torch.sampler.kernels import MixtureState, \
         init_mixture_params
+    from basicrta_torch.scripts.roofline import needed_transcendentals
 
     dev = torch.device("cuda")
     K = 15
-    lanes = {f"R{i}#{c}": t for i, t in workload.items() for c in range(2)}
-    mixed = max((b for b in batch.bucket_residues(lanes)
-                 if b.bounds is not None), key=lambda b: len(b.bounds))
-    require(mixed.pack >= 4, f"largest production bucket packs "
-            f"{mixed.pack}-way")
-    uniform = max((b for b in batch.bucket_residues(lanes, consolidate=False)
-                   if b.pack == 2), key=lambda b: b.values.shape[1])
-    require(uniform.values.shape[1] > 64, "uniform pack-2 bucket is one row")
     report = {}
-    for label, bk in (("mixed", mixed), ("uniform_p2", uniform)):
+    for label, bk in packed_buckets(workload):
         vals, cnts, tiers, seg_id, slot, Bs = batch._kernel_layout(bk)
         v = torch.tensor(vals, device=dev)
         c = torch.tensor(cnts, device=dev)
@@ -242,9 +256,7 @@ def packed_checks(workload):
                                      bk.pack, seg)
         _, W2, R2 = cs.segment_packed_torch(11, 0, st, *args, cfg1, 2, tiers,
                                             bk.pack, seg)
-        lane_ok = (torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1)
-                   & torch.isclose(R, R2, rtol=1e-4).flatten(1).all(1))[rows]
-        agree = lane_ok.float().mean().item()
+        agree = _agree(W, R, W2, R2, rows)
         require(agree >= 0.95, f"{label} K3 lanes agreeing {agree:.4f}")
         err = max((W - W2)[rows].abs().max().item(),
                   (R - R2)[rows].abs().max().item())
@@ -264,6 +276,8 @@ def packed_checks(workload):
             11, 0, st, *args, cfg10, 1, tiers, bk.pack, seg), 1)
         report[label] = dict(pack=bk.pack, Bph=v.shape[0],
                              SL=v.shape[1] // 128, lanes=bk.size,
+                             bytes=packed_bytes(v, Bs, K),
+                             work=needed_transcendentals(c, bk.size, K),
                              tiers=tiers, k3_agree=agree, k3_err=err,
                              resume_bitwise=resume, k3_ms_10sweeps=ms,
                              k3_plain_ms_10sweeps=plain)
@@ -441,6 +455,7 @@ def protein_run(workload, tmp):
 
     # each bucket of both layouts through run_batch, sampling only, under
     # the same conditions (no checkpoints, no progress syncs)
+    layouts = {}
     for name, layout_ in (("production", seen["layout"]), ("pow2", pow2)):
         secs = []
         for b in layout_:
@@ -451,13 +466,15 @@ def protein_run(workload, tmp):
         print(f"phase 3 {name} per bucket (s): {secs}; total "
               f"{sum(secs):.3f} s -> {lane_sweeps / sum(secs):,.0f} "
               f"lane-sweeps/s", flush=True)
-    return launches, pow2_launches
+        layouts[name] = (layout_, lane_sweeps / sum(secs))
+    return launches, pow2_launches, layouts
 
 
 def full_runs(workload, tmp):
     """Phase 4: the verify recipe and the flagship at default settings."""
     from basicrta_torch.config import GibbsConfig
     from basicrta_torch.sampler.gibbs import Gibbs
+    from basicrta_torch.scripts.workload import discretize, simulate_hyperexp
 
     x = discretize(simulate_hyperexp(5e4, [0.8, 0.17, 0.03],
                                      [3.0, 0.25, 0.02],
@@ -512,6 +529,9 @@ def prng_checks():
                                         device=dev), 20)
     plain_ms = cuda_ms(lambda: dp.draw_plain("binom_h4", 97, 5000, 0.47,
                                              device=dev), 2)
+    n = torch.full((256, 128), 5000.0, device=dev)
+    p = torch.full((256, 128), 0.47, device=dev)
+    library_ms = cuda_ms(lambda: torch.binomial(n, p), 20)
     dp.draw_kernel.launches = dp.draw_plain.calls = 0
     failures, not_run = dp.run_battery(
         dev, out=lambda line: print(f"phase 5 {line}", flush=True))
@@ -521,7 +541,246 @@ def prng_checks():
     print(f"phase 5 K5: uniform bits identical; max_abs_err {err}; binom "
           f"(5000, 0.47) tile {ms:.4f} ms, plain {plain_ms:.4f} ms; "
           f"battery passed on {launches} kernel launches", flush=True)
-    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms)
+    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms)
+
+
+def tree_checks(workload, production):
+    """Phase 6: K4, the tree multinomial, in its three kernel forms against
+    the plain tree on the card (K1-K3's pass rules, bitwise 1 + 1 block
+    resume), exact totals and the moment check over 8 seeds on the
+    kernel's draws, then the kernel A/B full vs tree_nat on protein-300's
+    production layout (K4's path: the counts are read around it)."""
+    import torch
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.sampler import batch
+    from basicrta_torch.sampler import cuda_sweep as cs
+    from basicrta_torch.sampler.kernels import (MixtureState, compute_tiers,
+                                                dedup_times,
+                                                init_mixture_params)
+    from basicrta_torch.scripts import abench
+    from basicrta_torch.scripts.workload import (discretize,
+                                                 simulate_hyperexp)
+
+    dev = torch.device("cuda")
+    K = 15
+    st0 = init_mixture_params(K, device=dev)
+    cfg1 = GibbsConfig(ncomp=K, niter=2, g=1)
+    cfg10 = GibbsConfig(ncomp=K, niter=10, g=10)
+    report, err = {}, 0.0
+    for label, bk in pow2_buckets(workload):
+        B, V = bk.values.shape
+        v = torch.tensor(bk.values, dtype=torch.float32, device=dev)
+        c = torch.tensor(bk.counts, dtype=torch.float32, device=dev)
+        tiers = cs.pad_tiers_to_rows(bk.tiers, V)
+        st = MixtureState(st0.weights.repeat(B, 1), st0.rates.repeat(B, 1))
+        ns, _ = cs.sweep_stats(7, st, v, c, K, tiers, tree=True)
+        pn, _ = cs.sweep_stats_torch(7, st, v, c, K, tiers, tree=True)
+        require(torch.equal(ns.sum(1), c.sum(1)), f"{label} K4 K1 totals")
+        same = (ns == pn).float().mean().item()
+        require(same >= 0.99, f"{label} K4 K1 N_k identical in {same:.4f}")
+        s2, W, R = cs.segment(11, 0, st, v, c, cfg1, 2, tiers, tree=True)
+        _, W2, R2 = cs.segment_torch(11, 0, st, v, c, cfg1, 2, tiers,
+                                     tree=True)
+        agree = _agree(W, R, W2, R2)
+        require(agree >= 0.95, f"{label} K4 K2 lanes agreeing {agree:.4f}")
+        s1, Wa, Ra = cs.segment(11, 0, st, v, c, cfg1, 1, tiers, tree=True)
+        s1, Wb, Rb = cs.segment(11, 1, s1, v, c, cfg1, 1, tiers, tree=True)
+        require(torch.equal(torch.cat([Wa, Wb], 1), W)
+                and torch.equal(torch.cat([Ra, Rb], 1), R)
+                and torch.equal(s1.weights, s2.weights), f"{label} K4 K2 "
+                "1 + 1 blocks differ from 2 blocks")
+        err = max(err, (ns - pn).abs().max().item())
+        report[label] = dict(
+            k1_same=same, k2_agree=agree, resume_bitwise=True,
+            k1_ms=cuda_ms(lambda: cs.sweep_stats(7, st, v, c, K, tiers,
+                                                 tree=True), 20),
+            k1_plain_ms=cuda_ms(lambda: cs.sweep_stats_torch(
+                7, st, v, c, K, tiers, tree=True), 2),
+            k2_ms_10sweeps=cuda_ms(lambda: cs.segment(
+                11, 0, st, v, c, cfg10, 1, tiers, tree=True), 20),
+            k2_plain_ms_10sweeps=cuda_ms(lambda: cs.segment_torch(
+                11, 0, st, v, c, cfg10, 1, tiers, tree=True), 1))
+        print(f"phase 6 K4 {label} ({B} x {V}): {json.dumps(report[label])}",
+              flush=True)
+    for label, bk in packed_buckets(workload):
+        vals, cnts, tiers, seg_id, slot, Bs = batch._kernel_layout(bk)
+        v, c = torch.tensor(vals, device=dev), torch.tensor(cnts, device=dev)
+        seg = None if seg_id is None else torch.tensor(seg_id, device=dev)
+        rows = (torch.tensor(slot, device=dev) if slot is not None
+                else torch.arange(bk.size, device=dev))
+        st = MixtureState(st0.weights.repeat(Bs, 1), st0.rates.repeat(Bs, 1))
+        args = (v, c)
+        s2, W, R = cs.segment_packed(11, 0, st, *args, cfg1, 2, tiers,
+                                     bk.pack, seg, tree=True)
+        _, W2, R2 = cs.segment_packed_torch(11, 0, st, *args, cfg1, 2, tiers,
+                                            bk.pack, seg, tree=True)
+        agree = _agree(W, R, W2, R2, rows)
+        require(agree >= 0.95, f"{label} K4 K3 lanes agreeing {agree:.4f}")
+        err = max(err, (W - W2)[rows].abs().max().item(),
+                  (R - R2)[rows].abs().max().item())
+        s1, Wa, Ra = cs.segment_packed(11, 0, st, *args, cfg1, 1, tiers,
+                                       bk.pack, seg, tree=True)
+        s1, Wb, Rb = cs.segment_packed(11, 1, s1, *args, cfg1, 1, tiers,
+                                       bk.pack, seg, tree=True)
+        require(torch.equal(torch.cat([Wa, Wb], 1), W)
+                and torch.equal(torch.cat([Ra, Rb], 1), R)
+                and torch.equal(s1.weights, s2.weights), f"{label} K4 K3 "
+                "1 + 1 blocks differ from 2 blocks")
+        report[label] = dict(
+            pack=bk.pack, Bph=v.shape[0], SL=v.shape[1] // 128,
+            lanes=bk.size, tiers=tiers, k3_agree=agree, resume_bitwise=True,
+            bytes=packed_bytes(v, Bs, K),
+            k3_ms_10sweeps=cuda_ms(lambda: cs.segment_packed(
+                11, 0, st, *args, cfg10, 1, tiers, bk.pack, seg, tree=True),
+                20),
+            k3_plain_ms_10sweeps=cuda_ms(lambda: cs.segment_packed_torch(
+                11, 0, st, *args, cfg10, 1, tiers, bk.pack, seg, tree=True),
+                1))
+        print(f"phase 6 K4 {label}: {json.dumps(report[label])}", flush=True)
+
+    # exact totals over 8 seeds and the moment check of tests/test_pallas.py
+    # (3 lanes x 512 columns of 25,000-event hyperexponential times, K = 8)
+    rng = np.random.default_rng(31)
+    Bm, Vm, Km = 3, 512, 8
+    vals, cnts = np.ones((Bm, Vm)), np.zeros((Bm, Vm))
+    for i in range(Bm):
+        x = discretize(simulate_hyperexp(25000, [0.7, 0.25, 0.05],
+                                         [3.0, 0.3, 0.02], rng))
+        vv, cc = dedup_times(x)
+        order = np.argsort(-cc)
+        vv, cc = vv[order][:Vm], cc[order][:Vm]
+        vals[i, :len(vv)], cnts[i, :len(cc)] = vv, cc
+    order, col_tiers = compute_tiers(cnts)
+    vals = np.take_along_axis(vals, order, -1)
+    cnts = np.take_along_axis(cnts, order, -1)
+    stm = init_mixture_params(Km, device=dev)
+    stm = MixtureState(stm.weights.repeat(Bm, 1), stm.rates.repeat(Bm, 1))
+    v = torch.tensor(vals, dtype=torch.float32, device=dev)
+    c = torch.tensor(cnts, dtype=torch.float32, device=dev)
+    NS = []
+    for seed in range(8):
+        ns, ts = cs.sweep_stats(seed, stm, v, c, Km,
+                                cs.pad_tiers_to_rows(col_tiers, Vm),
+                                tree=True)
+        require(torch.equal(ns.sum(1), c.sum(1)), "K4 exact N totals")
+        NS.append(ns.cpu().numpy())
+    w, r = stm.weights[0].cpu().numpy(), stm.rates[0].cpu().numpy()
+    z = w * r * np.exp(-np.einsum("k,bv->bvk", r, vals))
+    z = z / z.sum(-1, keepdims=True)
+    expect = np.einsum("bv,bvk->bk", cnts, z)
+    sd = np.sqrt(np.einsum("bv,bvk->bk", cnts, z * (1 - z)) / 8)
+    zmax = float((np.abs(np.mean(NS, 0) - expect) / np.maximum(sd, 2.0)).max())
+    require(zmax < 5.0, f"K4 moment z-score {zmax:.2f}")
+    print(f"phase 6 K4 totals exact over 8 seeds; moment z-score max "
+          f"{zmax:.3f} (< 5)", flush=True)
+
+    # the kernel A/B: K4's path, the counts read around it
+    counters = (cs.sweep_stats, cs.segment, cs.segment_packed)
+    for f in counters:
+        f.launches = f.tree_launches = 0
+    ab = abench.run_ab({"mixed": production}, ["full", "tree_nat"],
+                       AB_SWEEPS, AB_REPS, device=dev)
+    torch.cuda.synchronize()
+    tree_launches = sum(f.tree_launches for f in counters)
+    require(tree_launches > 0, "K4 never launched on the A/B path")
+    for line in abench.format_table(ab, True):
+        print(f"phase 6 abench {line}", flush=True)
+    pf, pt = ab["full"]["us_per_sweep"], ab["tree_nat"]["us_per_sweep"]
+    print(f"phase 6 abench tree_nat / full per bucket: "
+          f"{[round(b / a, 4) for a, b in zip(pf, pt)]}; aggregate "
+          f"{ab['tree_nat']['agg'] / ab['full']['agg']:.4f}; K4 launches "
+          f"{tree_launches}", flush=True)
+    return dict(report=report, err=err, launches=tree_launches, ab=ab)
+
+
+def roofline_checks(layouts, k1k2, k3):
+    """Phase 7: K6 against its plain version, the ceiling (K6's path, the
+    counts read around it), vpu_transcendental_util of phase 3's
+    production and pow2 layouts, and each kernel's bound."""
+    import torch
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.sampler import cuda_sweep as cs
+    from basicrta_torch.scripts import roofline as rf
+
+    dev = torch.device("cuda")
+    out = torch.empty((rf.ROWS, rf.COLS), device=dev)
+    err = 0.0
+    # bench.py's scale sends every chain to 1.0 at its first step, so the
+    # tile is also held at the check scale, where every step moves it
+    for iters, scale in ((20, rf.CHECK_SCALE), (rf.ITERS, rf.SCALE)):
+        rf.ceiling_tile(out, iters, scale)
+        ref = rf.ceiling_tile_torch(iters, device=dev, scale=scale)
+        torch.cuda.synchronize()
+        require(torch.allclose(out, ref, rtol=1e-6, atol=0),
+                f"K6 tile differs from its plain version ({iters} steps of "
+                f"exp(x * {scale}))")
+        err = max(err, (out - ref).abs().max().item())
+        if scale == rf.CHECK_SCALE:
+            rf.ceiling_tile(out, iters - 1, scale)
+            require(not torch.allclose(out, ref, rtol=1e-5, atol=0),
+                    "K6 tile does not move with its step count")
+    peak = rf.sfu_peak(rf.max_sm_clock_mhz())
+    rf.ceiling_tile.launches = 0
+    ceiling = rf.transcendental_ceiling(dev)
+    launches = rf.ceiling_tile.launches
+    require(launches > 0, "K6 never launched")
+    require(ceiling <= peak, f"K6 ceiling {ceiling:.6g} exp/s above the "
+            f"SFU peak {peak:.6g}/s")
+    ms = rf.ceiling_ops() / ceiling * 1e3
+    plain_ms = rf.ceiling_ops() / rf.transcendental_ceiling_torch(dev) * 1e3
+    x = torch.ones((rf.TILES, rf.ROWS, rf.COLS), device=dev)
+
+    def exps():
+        for _ in range(rf.ITERS):
+            torch.exp(x)
+    library_ms = cuda_ms(exps, 1)
+    print(f"phase 7 K6: tile allclose rtol 1e-6 at 20 steps of exp(-x) and "
+          f"{rf.ITERS} of exp(x * 1e-9) (max abs err {err}), 19 steps "
+          f"differ; ceiling {ceiling:.6g} exp/s = {ceiling / peak:.4f} of "
+          f"the SFU peak {peak:.6g}/s; {ms:.4f} ms a launch ({launches} "
+          f"launches), plain {plain_ms:.3f} ms, {rf.ITERS} torch.exp calls "
+          f"{library_ms:.3f} ms", flush=True)
+    cfg = GibbsConfig(ncomp=15, niter=PROTEIN_SWEEPS)
+    for name, (batches, agg) in layouts.items():
+        util = rf.vpu_transcendental_util(batches, agg, cfg, ceiling)
+        print(f"phase 7 vpu_transcendental_util {name}: {util:.6f} "
+              f"({rf.transcendentals(batches, 15):,} transcendentals a "
+              f"sweep at {agg:,.0f} lane-sweeps/s)", flush=True)
+
+    K = 15
+    f, m = k1k2["flagship"], k3["mixed"]
+    # the reference layout's static counts, for comparison with the bounds
+    sweep = cs.transcendentals_per_sweep(f["B"], f["V"], 1, (0, 0), K,
+                                         phys=(f["V"] // 128, *f["tiers"]))
+    packed = cs.transcendentals_per_sweep(
+        m["lanes"], 0, m["pack"], (0, 0), K,
+        phys=(m["SL"], *m["tiers"], m["Bph"]))
+    # (work this run's data needs, bytes, static count); K1 draws no
+    # conjugate; K2 adds its state: one thinned block + final
+    work = {
+        "sweep_stats": (f["work_k1"], f["bytes"], sweep),
+        "segment": (10 * f["work"], f["bytes"] + 8 * f["B"] * K, 10 * sweep),
+        "segment_packed": (10 * m["work"], m["bytes"], 10 * packed),
+        "suff_stats_tree": (10 * m["work"], m["bytes"], 10 * packed),
+        "prng_draws": (rf.ROWS * rf.COLS, 4 * rf.ROWS * rf.COLS,
+                       rf.ROWS * rf.COLS),
+        "transcendental_ceiling": (rf.ceiling_ops(), 4 * rf.ROWS * rf.COLS,
+                                   rf.ceiling_ops()),
+    }
+    bounds = {}
+    for name, (trans, nbytes, static) in work.items():
+        t_ops, t_bytes = trans / peak, nbytes / HBM_BYTES_PER_S
+        bounds[name] = (1e3 * max(t_ops, t_bytes),
+                        "operations" if t_ops >= t_bytes else "bytes")
+        print(f"phase 7 bound {name}: {bounds[name][0]:.6g} ms "
+              f"({bounds[name][1]}; {trans:,} transcendentals, {nbytes:,} "
+              f"bytes; {1e3 * trans / ceiling:.6g} ms at the measured "
+              f"ceiling; the reference layout's static count {static:,} "
+              f"takes {1e3 * static / ceiling:.6g} ms there)", flush=True)
+    return dict(ceiling=ceiling, peak=peak, launches=launches, err=err,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bounds=bounds)
 
 
 def main():
@@ -532,6 +791,7 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
 
     from basicrta_torch.sampler import cuda_sweep as cs
+    from basicrta_torch.scripts.workload import make_workload
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -539,9 +799,10 @@ def main():
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} ({smi}), "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
+    sources = ("sweep.cu", "prng.cu", "ceiling.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:
         builds = [pool.submit(cs.build_library, True, src)
-                  for src in ("sweep.cu", "prng.cu")]
+                  for src in sources]
         for b in builds:
             b.result()
     print(f"phase 1 build: {time.time() - t0:.2f} s", flush=True)
@@ -550,49 +811,46 @@ def main():
     report = kernel_checks(workload)
     k3 = packed_checks(workload)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, pow2_launches = protein_run(workload, tmp)
+        launches, pow2_launches, layouts = protein_run(workload, tmp)
         full_runs(workload, tmp)
     k5 = prng_checks()
+    k4 = tree_checks(workload, layouts["production"][0])
+    k6 = roofline_checks(layouts, report, k3)
     require("jax" not in sys.modules, "jax was imported")
+    require("basicrta_tpu" not in sys.modules, "basicrta_tpu was imported")
 
-    f = report["flagship"]
-    kernels = {"kernels": [{
-        "name": "segment",
-        "route": "cuda",
-        "source": "basicrta_torch/csrc/sweep.cu",
-        "replaces": "basicrta_tpu/sampler/pallas_sweep.py:1117",
-        "launches": pow2_launches["segment"],
-        "max_abs_err": max(r["k2_err"] for r in report.values()),
-        "ms": f["k2_ms_10sweeps"],
-        "plain_ms": f["k2_plain_ms_10sweeps"],
-    }, {
-        "name": "segment_packed",
-        "route": "cuda",
-        "source": "basicrta_torch/csrc/sweep.cu",
-        "replaces": "basicrta_tpu/sampler/pallas_sweep.py:1238",
-        "launches": launches["segment_packed"],
-        "max_abs_err": max(r["k3_err"] for r in k3.values()),
-        "ms": k3["mixed"]["k3_ms_10sweeps"],
-        "plain_ms": k3["mixed"]["k3_plain_ms_10sweeps"],
-    }, {
-        "name": "sweep_stats",
-        "route": "cuda",
-        "source": "basicrta_torch/csrc/sweep.cu",
-        "replaces": "basicrta_tpu/sampler/pallas_sweep.py:930",
-        "launches": sum(r["k1_launches"] for r in report.values()),
-        "max_abs_err": max(r["k1_err"] for r in report.values()),
-        "ms": f["k1_ms"],
-        "plain_ms": f["k1_plain_ms"],
-    }, {
-        "name": "prng_draws",
-        "route": "cuda",
-        "source": "basicrta_torch/csrc/prng.cu",
-        "replaces": "scripts/device_prng.py:40",
-        "launches": k5["launches"],
-        "max_abs_err": k5["err"],
-        "ms": k5["ms"],
-        "plain_ms": k5["plain_ms"],
-    }]}
+    f, t = report["flagship"], k4["report"]["mixed"]
+    none = ("none: no single PyTorch call draws a multinomial per element "
+            "with a per-element count")
+    sweep = "basicrta_torch/csrc/sweep.cu"
+    rows = [
+        ("segment", sweep, "basicrta_tpu/sampler/pallas_sweep.py:1117",
+         pow2_launches["segment"], max(r["k2_err"] for r in report.values()),
+         f["k2_ms_10sweeps"], f["k2_plain_ms_10sweeps"], None),
+        ("segment_packed", sweep, "basicrta_tpu/sampler/pallas_sweep.py:1238",
+         launches["segment_packed"], max(r["k3_err"] for r in k3.values()),
+         k3["mixed"]["k3_ms_10sweeps"], k3["mixed"]["k3_plain_ms_10sweeps"],
+         None),
+        ("sweep_stats", sweep, "basicrta_tpu/sampler/pallas_sweep.py:930",
+         sum(r["k1_launches"] for r in report.values()),
+         max(r["k1_err"] for r in report.values()), f["k1_ms"],
+         f["k1_plain_ms"], None),
+        ("suff_stats_tree", sweep, "basicrta_tpu/sampler/pallas_sweep.py:733",
+         k4["launches"], k4["err"], t["k3_ms_10sweeps"],
+         t["k3_plain_ms_10sweeps"], None),
+        ("prng_draws", "basicrta_torch/csrc/prng.cu",
+         "scripts/device_prng.py:40", k5["launches"], k5["err"], k5["ms"],
+         k5["plain_ms"], k5["library_ms"]),
+        ("transcendental_ceiling", "basicrta_torch/csrc/ceiling.cu",
+         "bench.py:388", k6["launches"], k6["err"], k6["ms"],
+         k6["plain_ms"], k6["library_ms"]),
+    ]
+    kernels = {"kernels": [dict(
+        name=name, route="cuda", source=src, replaces=rep, launches=n,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=k6["bounds"][name][0], bound_by=k6["bounds"][name][1],
+        library_ms=lib, **({} if lib is not None else {"library": none}))
+        for name, src, rep, n, err, ms, plain_ms, lib in rows]}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

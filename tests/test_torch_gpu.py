@@ -204,3 +204,86 @@ def test_batched_postprocessing_on_the_card(dev):
         assert r.lmode == 2
         np.testing.assert_allclose(r.pindicator_values.sum(1), 1.0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 384, 5, (1, 2)), (2, 1024, 15, (2, 4)),
+                                   (256, 128, 15, (0, 1)),
+                                   (3, 512, 32, (0, 0))])
+def test_tree_kernels_match_plain(dev, shape):
+    """K4 in K1's and K2's kernels against the plain tree, K1/K2's rules."""
+    B, V, K, tiers = shape
+    st, v, c = _bucket(B, V, K, tiers, 15, dev)
+    before = cuda_sweep.sweep_stats.tree_launches
+    ns, ts = cuda_sweep.sweep_stats(11, st, v, c, K, tiers, tree=True)
+    assert cuda_sweep.sweep_stats.tree_launches == before + 1
+    pn, pt = cuda_sweep.sweep_stats_torch(11, st, v, c, K, tiers, tree=True)
+    assert torch.equal(ns.sum(1), c.sum(1))
+    assert (ns == pn).float().mean().item() >= 0.99
+    same = (ns == pn).all(1)
+    torch.testing.assert_close(ts[same], pt[same], rtol=1e-4, atol=1e-3)
+    cfg = GibbsConfig(ncomp=K, niter=2, g=1)
+    _, W, R = cuda_sweep.segment(5, 0, st, v, c, cfg, 2, tiers, tree=True)
+    _, W2, R2 = cuda_sweep.segment_torch(5, 0, st, v, c, cfg, 2, tiers,
+                                         tree=True)
+    ok = (torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1)
+          & torch.isclose(R, R2, rtol=1e-4).flatten(1).all(1))
+    assert ok.float().mean().item() >= 0.95
+
+
+def test_tree_packed_kernel_matches_plain_and_resumes(dev):
+    K = 15
+    st, v, c, tiers, seg, pack, slot = _mixed_bucket(dev, K)
+    cfg = GibbsConfig(ncomp=K, niter=2, g=1)
+    s2, W, R = cuda_sweep.segment_packed(5, 0, st, v, c, cfg, 2, tiers, pack,
+                                         seg, tree=True)
+    _, W2, R2 = cuda_sweep.segment_packed_torch(5, 0, st, v, c, cfg, 2,
+                                                tiers, pack, seg, tree=True)
+    ok = (torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1)
+          & torch.isclose(R, R2, rtol=1e-4).flatten(1).all(1))[slot]
+    assert ok.float().mean().item() >= 0.95
+    s1, Wa, Ra = cuda_sweep.segment_packed(5, 0, st, v, c, cfg, 1, tiers,
+                                           pack, seg, tree=True)
+    s1, Wb, Rb = cuda_sweep.segment_packed(5, 1, s1, v, c, cfg, 1, tiers,
+                                           pack, seg, tree=True)
+    assert torch.equal(torch.cat([Wa, Wb], 1), W)
+    assert torch.equal(torch.cat([Ra, Rb], 1), R)
+    assert torch.equal(s1.weights, s2.weights)
+    # uniform pack 2: logical lanes straight in
+    st2, v2, c2 = _bucket(8, 256, K, (1, 1), 4, dev)
+    _, W, _ = cuda_sweep.segment_packed(5, 0, st2, v2[:, :128], c2[:, :128],
+                                        cfg, 2, (1, 1), 2, tree=True)
+    _, W2, _ = cuda_sweep.segment_packed_torch(5, 0, st2, v2[:, :128],
+                                               c2[:, :128], cfg, 2, (1, 1),
+                                               2, tree=True)
+    assert torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1).float().mean(
+        ).item() >= 0.95
+
+
+def test_tree_kernel_exact_resume(dev):
+    st, v, c = _bucket(8, 256, 6, (1, 1), 6, dev)
+    cfg = GibbsConfig(ncomp=6, niter=40, g=10)
+    s4, W4, R4 = cuda_sweep.segment(9, 0, st, v, c, cfg, 4, (1, 1), tree=True)
+    s1, Wa, Ra = cuda_sweep.segment(9, 0, st, v, c, cfg, 1, (1, 1), tree=True)
+    s3, Wb, Rb = cuda_sweep.segment(9, cfg.g, s1, v, c, cfg, 3, (1, 1),
+                                    tree=True)
+    assert torch.equal(torch.cat([Wa, Wb], 1), W4)
+    assert torch.equal(torch.cat([Ra, Rb], 1), R4)
+    assert torch.equal(s3.weights, s4.weights)
+
+
+def test_ceiling_kernel_matches_plain(dev):
+    from basicrta_torch.scripts import roofline
+    s = roofline.CHECK_SCALE
+    out = torch.empty((256, 128), device=dev)
+    for iters, scale in ((20, s), (50, roofline.SCALE)):
+        before = roofline.ceiling_tile.launches
+        roofline.ceiling_tile(out, iters=iters, scale=scale)
+        assert roofline.ceiling_tile.launches == before + 1
+        ref = roofline.ceiling_tile_torch(iters, 64, device=dev, scale=scale)
+        torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
+    # one step fewer must show at the check scale
+    roofline.ceiling_tile(out, iters=19, scale=s)
+    ref = roofline.ceiling_tile_torch(20, 64, device=dev, scale=s)
+    assert not torch.allclose(out, ref, rtol=1e-5, atol=0)
+    ceiling = roofline.transcendental_ceiling(dev)
+    assert 1e11 < ceiling <= roofline.sfu_peak(roofline.max_sm_clock_mhz())

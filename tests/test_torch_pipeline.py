@@ -102,7 +102,24 @@ def test_cuda_engine_raises_without_a_gpu():
         batch.run_batch(b, cfg, engine="cuda", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         batch.run_batch(b, cfg, engine="pallas")
-    assert batch.resolve_engine("auto") == ("torch", torch.device("cpu"))
+    with pytest.raises(ValueError, match="unknown engine"):
+        batch.resolve_engine("auto")
+    # the default is the card: without one it raises, never falls back
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        batch.resolve_engine()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        batch.run_batch(b, cfg)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        batch.run_residues({"A1": _times(300, 1)}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Gibbs(_times(300, 1), residue="A1", cutoff=7.0, cfg=cfg).run()
+    with pytest.raises(SystemExit):
+        cli.main(["gibbs", "--contacts", "x.npz", "--engine", "auto"])
+    # the CPU only when the caller asks for it
+    assert batch.resolve_engine(device="cpu") == ("torch",
+                                                  torch.device("cpu"))
+    assert batch.resolve_engine("torch") == ("torch", torch.device("cpu"))
+    assert batch.run_batch(b, cfg, device="cpu").mcweights.shape == (1, 2, 3)
 
 
 def test_import_and_cpu_slice_leave_jax_out(tmp_path):
@@ -187,7 +204,9 @@ def test_status_reports_skipped(slice_runs, capsys, monkeypatch):
 def test_artifacts_load_in_either_package(slice_runs, writer):
     path = slice_runs[writer] / "basicrta-7.0" / "X10" / "gibbs_600.npz"
     a, b = Gibbs.load(str(path)), JGibbs.load(str(path))
-    assert a.cfg == b.cfg and a.processed.lmode == b.processed.lmode
+    # each package has its own GibbsConfig class; their JSON is one form
+    assert a.cfg.to_json() == b.cfg.to_json()
+    assert a.processed.lmode == b.processed.lmode
     np.testing.assert_array_equal(a.mcweights, b.mcweights)
     np.testing.assert_array_equal(a.processed.labels, b.processed.labels)
     assert a.tau == b.tau
