@@ -12,8 +12,7 @@
 
 namespace basicrta {
 
-constexpr int kLanes = 128;          // threads per block = columns per row
-constexpr int kWarps = kLanes / 32;
+constexpr int kLanes = 128;          // columns per row
 constexpr int kKMax = 32;
 constexpr int kInvFull = 32;
 constexpr int kInvSmall = 17;        // SMALL_NMAX + 1
@@ -22,6 +21,15 @@ constexpr int kBtrsUnroll = 4;
 constexpr int kMtRounds = 8;
 constexpr float kTiny = 1e-30f;
 constexpr uint32_t kElemMul = 0x27D4EB2Fu;
+
+// The block's dynamic shared memory. A host build
+// (BASICRTA_HOST_EMULATION) takes it from its <cuda_runtime.h>.
+#ifndef BASICRTA_HOST_EMULATION
+__device__ __forceinline__ float* dynamic_smem() {
+  extern __shared__ float smem[];
+  return smem;
+}
+#endif
 
 // ------------------------------------------------------------------ RNG
 

@@ -16,11 +16,14 @@ thinning blocks is one launch of the fused sweep kernel. Two layouts:
 The layout code is pure numpy and a line-for-line port, including the
 cost constants fitted on the TPU, so both packages lay a protein out into
 the same buckets. Segments checkpoint and resume exactly, because the
-kernels reseed every sweep from the absolute sweep index.
+kernels reseed every sweep from the absolute sweep index; for the same
+reason :func:`run_residues` can keep every bucket on the card at once, each
+on a CUDA stream of its own, and still return each bucket's own chain.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -569,6 +572,170 @@ def _kernel_layout(batch: ResidueBatch):
     return values, counts, tiers, None, None, Bs
 
 
+class _BucketRun:
+    """One bucket's chains, advanced a segment at a time. :meth:`launch`
+    launches the next segment (on the bucket's CUDA stream, if it has
+    one) and returns without waiting; :meth:`collect` keeps the segment's
+    samples, writes the checkpoint and calls ``checkpoint_cb``. The chain
+    is the same for any segmentation and any interleaving with other
+    buckets: every sweep reseeds from the absolute sweep index and the
+    seed is salted by the bucket's names."""
+
+    def __init__(self, batch: ResidueBatch, cfg: GibbsConfig,
+                 segment_blocks: int, checkpoint_path: Optional[str],
+                 checkpoint_cb, engine: str, device: torch.device,
+                 stream=None):
+        if checkpoint_path is not None and not checkpoint_path.endswith(
+                ".npz"):
+            checkpoint_path += ".npz"
+        self.batch, self.cfg = batch, cfg
+        self.segment_blocks = segment_blocks
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_cb = checkpoint_cb
+        self.device, self.stream = device, stream
+        B = batch.size
+        K = cfg.ncomp
+        pack = batch.pack
+        values_np, counts_np, tiers, seg_id, slot_np, Bs = _kernel_layout(
+            batch)
+        values = torch.as_tensor(values_np, dtype=torch.float32,
+                                 device=device)
+        counts = torch.as_tensor(counts_np, dtype=torch.float32,
+                                 device=device)
+        mixed = seg_id is not None
+        if mixed:
+            seg_mask = torch.as_tensor(seg_id, device=device)
+            slot_take = torch.as_tensor(slot_np, device=device)
+        st0 = init_mixture_params(K, device=device)
+        self.state = MixtureState(st0.weights.repeat(Bs, 1),
+                                  st0.rates.repeat(Bs, 1))
+        self.total_blocks = cfg.niter // cfg.g
+        # salt the seed by the bucket's residue set (as the JAX package's
+        # fused engine does), so buckets never share streams
+        bucket_salt = zlib.crc32(",".join(batch.names).encode()) & 0x7FFFFFFF
+        seed0 = (cfg.seed ^ bucket_salt) & 0x7FFFFFFF
+        self.ckpt_engine = f"basicrta_torch-{engine}"
+        if pack > 1:
+            self.ckpt_engine += f"-p{pack}"
+        if mixed:
+            # the width layout decides which uniform feeds which draw, so
+            # checkpoints never resume across mixed/uniform layouts
+            crc = zlib.crc32(np.asarray(batch.bounds, np.int64).tobytes())
+            self.ckpt_engine += f"-mx{crc & 0xffff:04x}"
+        self.Ws: list = []
+        self.Rs: list = []
+        self.done = self.seg_idx = 0
+        self._pending = None
+        if checkpoint_path is not None:
+            resumed = load_checkpoint(checkpoint_path, batch, cfg,
+                                      self.ckpt_engine)
+            if resumed is not None:
+                self.done, self.seg_idx, ck, self.Ws, self.Rs = resumed
+                # checkpoints hold the B members' state: scatter it back
+                # into the kernel's slots (mixed) or re-pad the lanes
+                w = torch.ones((Bs, K), dtype=torch.float32, device=device)
+                r = torch.ones((Bs, K), dtype=torch.float32, device=device)
+                rows = slot_take if mixed else slice(0, B)
+                w[rows] = torch.as_tensor(ck.weights, dtype=torch.float32,
+                                          device=device)
+                r[rows] = torch.as_tensor(ck.rates, dtype=torch.float32,
+                                          device=device)
+                self.state = MixtureState(w, r)
+        if pack > 1:
+            fn = segment_packed if engine == "cuda" else segment_packed_torch
+
+            def step(offset, st, nb):
+                return fn(seed0, offset, st, values, counts, cfg, nb, tiers,
+                          pack, seg_mask if mixed else None)
+        else:
+            fn = segment if engine == "cuda" else segment_torch
+
+            def step(offset, st, nb):
+                return fn(seed0, offset, st, values, counts, cfg, nb, tiers)
+
+        def members(x):
+            """Kernel rows (slots or padded lanes) -> the B members."""
+            return x.index_select(0, slot_take) if mixed else x[:B]
+
+        self._step, self._members = step, members
+        if stream is not None:
+            # the operands were made on the current stream
+            stream.wait_stream(torch.cuda.current_stream(device))
+
+    def _on_stream(self):
+        return (contextlib.nullcontext() if self.stream is None
+                else torch.cuda.stream(self.stream))
+
+    @property
+    def finished(self) -> bool:
+        return self.done >= self.total_blocks
+
+    def launch(self):
+        """Launch the next segment; nothing is copied to the host."""
+        nb = min(self.segment_blocks, self.total_blocks - self.done)
+        with self._on_stream():
+            self.state, W, R = self._step(self.done * self.cfg.g, self.state,
+                                          nb)
+            self._pending = (nb, self._members(W), self._members(R))
+
+    def collect(self):
+        """Take the launched segment in: samples, checkpoint, callback."""
+        nb, W, R = self._pending
+        self._pending = None
+        keep = self.checkpoint_path is not None
+        with self._on_stream():
+            if keep or self.checkpoint_cb is not None:
+                W, R = W.cpu().numpy(), R.cpu().numpy()
+            self.Ws.append(W)
+            self.Rs.append(R)
+            self.done += nb
+            self.seg_idx += 1
+            if keep:
+                ck = MixtureState(
+                    self._members(self.state.weights).cpu().numpy(),
+                    self._members(self.state.rates).cpu().numpy())
+                save_checkpoint(self.checkpoint_path, self.batch, self.cfg,
+                                self.done, self.seg_idx, ck, self.Ws,
+                                self.Rs, self.ckpt_engine)
+        if self.checkpoint_cb is not None:
+            self.checkpoint_cb(self.seg_idx, self.state, (self.Ws, self.Rs))
+
+    def result(self) -> BatchResult:
+        """The finished run's samples on the host; removes the checkpoint."""
+        if self.checkpoint_path is not None and os.path.exists(
+                self.checkpoint_path):
+            os.remove(self.checkpoint_path)
+        with self._on_stream():
+            host = [np.asarray(x.cpu()) if torch.is_tensor(x) else x
+                    for x in self.Ws + self.Rs]
+        n = len(self.Ws)
+        return BatchResult(self.batch.names,
+                           np.concatenate(host[:n], axis=1),
+                           np.concatenate(host[n:], axis=1),
+                           self.batch.n_events)
+
+
+def _advance(runs: Sequence[_BucketRun], cfg: GibbsConfig, device,
+             progress_cb) -> None:
+    """Run every bucket to its end, a segment of all buckets at a time:
+    each round launches the segment of every unfinished bucket before it
+    takes any of them in, so buckets on streams of their own share the
+    card. ``progress_cb`` fires once a round, with the sweeps every
+    bucket has done."""
+    while True:
+        live = [r for r in runs if not r.finished]
+        if not live:
+            return
+        for r in live:
+            r.launch()
+        for r in live:
+            r.collect()
+        if progress_cb is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            progress_cb(min(r.done for r in runs) * cfg.g, cfg.niter)
+
+
 def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
               segment_blocks: int = 100,
               checkpoint_path: Optional[str] = None,
@@ -590,108 +757,51 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
         device: where the lanes live; defaults from the engine.
     """
     engine, device = resolve_engine(engine, device)
-    if checkpoint_path is not None and not checkpoint_path.endswith(".npz"):
-        checkpoint_path += ".npz"
-    B = batch.size
-    K = cfg.ncomp
-    pack = batch.pack
-    values_np, counts_np, tiers, seg_id, slot_np, Bs = _kernel_layout(batch)
-    values = torch.as_tensor(values_np, dtype=torch.float32, device=device)
-    counts = torch.as_tensor(counts_np, dtype=torch.float32, device=device)
-    mixed = seg_id is not None
-    if mixed:
-        seg_mask = torch.as_tensor(seg_id, device=device)
-        slot_take = torch.as_tensor(slot_np, device=device)
-    st0 = init_mixture_params(K, device=device)
-    state = MixtureState(st0.weights.repeat(Bs, 1), st0.rates.repeat(Bs, 1))
-    total_blocks = cfg.niter // cfg.g
-    # salt the seed by the bucket's residue set (as the JAX package's
-    # fused engine does), so buckets never share streams
-    bucket_salt = zlib.crc32(",".join(batch.names).encode()) & 0x7FFFFFFF
-    seed0 = (cfg.seed ^ bucket_salt) & 0x7FFFFFFF
-    ckpt_engine = f"basicrta_torch-{engine}"
-    if pack > 1:
-        ckpt_engine += f"-p{pack}"
-    if mixed:
-        # the width layout decides which uniform feeds which draw, so
-        # checkpoints never resume across mixed/uniform layouts
-        crc = zlib.crc32(np.asarray(batch.bounds, np.int64).tobytes())
-        ckpt_engine += f"-mx{crc & 0xffff:04x}"
-    Ws: list = []
-    Rs: list = []
-    done = seg_idx = 0
-    if checkpoint_path is not None:
-        resumed = load_checkpoint(checkpoint_path, batch, cfg, ckpt_engine)
-        if resumed is not None:
-            done, seg_idx, ck, Ws, Rs = resumed
-            # checkpoints hold the B members' state: scatter it back into
-            # the kernel's slots (mixed) or re-pad the lanes
-            w = torch.ones((Bs, K), dtype=torch.float32, device=device)
-            r = torch.ones((Bs, K), dtype=torch.float32, device=device)
-            rows = slot_take if mixed else slice(0, B)
-            w[rows] = torch.as_tensor(ck.weights, dtype=torch.float32,
-                                      device=device)
-            r[rows] = torch.as_tensor(ck.rates, dtype=torch.float32,
-                                      device=device)
-            state = MixtureState(w, r)
-    if pack > 1:
-        fn = segment_packed if engine == "cuda" else segment_packed_torch
+    run = _BucketRun(batch, cfg, segment_blocks, checkpoint_path,
+                     checkpoint_cb, engine, device)
+    _advance([run], cfg, device, progress_cb)
+    return run.result()
 
-        def step(offset, st, nb):
-            return fn(seed0, offset, st, values, counts, cfg, nb, tiers,
-                      pack, seg_mask if mixed else None)
-    else:
-        fn = segment if engine == "cuda" else segment_torch
 
-        def step(offset, st, nb):
-            return fn(seed0, offset, st, values, counts, cfg, nb, tiers)
+def run_batches(batches: Sequence[ResidueBatch], cfg: GibbsConfig,
+                segment_blocks: int = 100,
+                checkpoint_paths: Optional[Sequence[Optional[str]]] = None,
+                checkpoint_cb=None, progress_cb=None,
+                engine: Optional[str] = None,
+                device=None) -> List[BatchResult]:
+    """Run full chains for several buckets, all on the device at once.
 
-    def members(x):
-        """Kernel rows (slots or padded lanes) -> the B members."""
-        return x.index_select(0, slot_take) if mixed else x[:B]
-
-    while done < total_blocks:
-        nb = min(segment_blocks, total_blocks - done)
-        state, W, R = step(done * cfg.g, state, nb)
-        W, R = members(W), members(R)
-        if checkpoint_path is not None or checkpoint_cb is not None:
-            W, R = W.cpu().numpy(), R.cpu().numpy()
-        Ws.append(W)
-        Rs.append(R)
-        done += nb
-        seg_idx += 1
-        if checkpoint_path is not None:
-            ck = MixtureState(members(state.weights).cpu().numpy(),
-                              members(state.rates).cpu().numpy())
-            save_checkpoint(checkpoint_path, batch, cfg, done, seg_idx, ck,
-                            Ws, Rs, ckpt_engine)
-        if checkpoint_cb is not None:
-            checkpoint_cb(seg_idx, state, (Ws, Rs))
-        if progress_cb is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            progress_cb(done * cfg.g, cfg.niter)
-    if checkpoint_path is not None and os.path.exists(checkpoint_path):
-        os.remove(checkpoint_path)
-    host = [np.asarray(x.cpu()) if torch.is_tensor(x) else x
-            for x in Ws + Rs]
-    n = len(Ws)
-    return BatchResult(batch.names, np.concatenate(host[:n], axis=1),
-                       np.concatenate(host[n:], axis=1), batch.n_events)
+    On the card each bucket launches on a CUDA stream of its own, and the
+    current segment of every bucket is launched before any bucket's samples
+    are copied to the host; checkpoints (``checkpoint_paths``, one a
+    bucket) and ``progress_cb`` follow the segment of all buckets. Every
+    bucket's result is bitwise that of :func:`run_batch` on it alone,
+    whose other arguments these are."""
+    engine, device = resolve_engine(engine, device)
+    if checkpoint_paths is None:
+        checkpoint_paths = [None] * len(batches)
+    runs = [_BucketRun(b, cfg, segment_blocks, path, checkpoint_cb, engine,
+                       device, torch.cuda.Stream(device)
+                       if device.type == "cuda" else None)
+            for b, path in zip(batches, checkpoint_paths)]
+    _advance(runs, cfg, device, progress_cb)
+    return [run.result() for run in runs]
 
 
 def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
                  n_chains: int = 1, checkpoint_dir: Optional[str] = None,
                  ladder: Optional[str] = "engine",
                  **kwargs) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
-    """All-residue driver: bucket, then run each bucket on the device.
+    """All residues: bucket, then run every bucket on the device at
+    once (:func:`run_batches`).
 
     Chains are extra lanes (the residue repeated as ``name#chain``).
     Residues with no events are omitted. ``ladder`` picks the layout:
     'engine' follows the engine as the JAX package does (the production
     layout for 'cuda', the pow2 ladder for 'torch'); None forces the
     production layout and 'pow2' the pow2 ladder. ``kwargs`` go to
-    :func:`run_batch` (engine, device, progress_cb, segment_blocks).
+    :func:`run_batches` (engine, device, progress_cb, checkpoint_cb,
+    segment_blocks); ``checkpoint_dir`` holds one checkpoint a bucket.
 
     Returns:
         {residue: (mcweights (chains, S, K), mcrates (chains, S, K))}
@@ -705,14 +815,14 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
                                     kwargs.pop("device", None))
     if ladder == "engine":
         ladder = None if engine == "cuda" else "pow2"
-    for batch in bucket_residues(expanded, ladder=ladder):
-        ckpt = None
-        if checkpoint_dir is not None:
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            key = _checkpoint_key(batch, cfg, f"basicrta_torch-{engine}")
-            ckpt = os.path.join(checkpoint_dir, f"ckpt_{key}.npz")
-        res = run_batch(batch, cfg, checkpoint_path=ckpt, engine=engine,
-                        device=device, **kwargs)
+    batches = bucket_residues(expanded, ladder=ladder)
+    paths = None
+    if checkpoint_dir is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        paths = [os.path.join(checkpoint_dir, "ckpt_" + _checkpoint_key(
+            b, cfg, f"basicrta_torch-{engine}") + ".npz") for b in batches]
+    for res in run_batches(batches, cfg, checkpoint_paths=paths,
+                           engine=engine, device=device, **kwargs):
         for i, lane_name in enumerate(res.names):
             name, ch = lane_name.rsplit("#", 1)
             out[name][int(ch)] = (res.mcweights[i], res.mcrates[i])

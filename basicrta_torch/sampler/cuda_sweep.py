@@ -30,6 +30,9 @@ JAX interpret path draw for draw on the CPU.
 
 Each wrapper runs the plain version for CPU tensors and launches its
 kernel for CUDA tensors (or raises); ``launches`` counts kernel launches.
+A lane is one thread block with a thread per column
+(:func:`block_threads`); K3 takes each slot's contiguous column range
+(:func:`slot_ranges`).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -62,6 +66,8 @@ _M32 = 0xFFFFFFFF
 _ELEM_MUL = 0x27D4EB2F
 _KMAX = 32          # largest K the CUDA kernels take (local arrays)
 _PACK_MAX = 16      # most logical lanes K3 packs into one physical lane
+_CHAIN_THREADS = 1024   # most threads of a block (sweep.cu kChainThreads)
+_TREE_THREADS = 512     # ... of a tree form's (kTreeThreads)
 
 
 # --------------------------------------------------------------------- #
@@ -631,7 +637,8 @@ def packed_group_size(Bph: int, SL: int, K: int, n_blocks: int, pack: int,
 
 
 def _packed_operands(state: MixtureState, values, counts, K: int,
-                     tiers: Tuple[int, int], pack: int, seg_mask):
+                     tiers: Tuple[int, int], pack: int, seg_mask,
+                     check_slots: bool = True):
     """Physical operands of K3: (v, c, slot) with v/c (Bph, SL * 128) and
     slot (Bph, 128) int64, each column's owning slot.
 
@@ -640,7 +647,8 @@ def _packed_operands(state: MixtureState, values, counts, K: int,
     columns [s * W, (s + 1) * W) of every row (W = 128 // pack). Mixed
     packing: values/counts are physical already and ``seg_mask`` is the
     (Bph, 128) f32 slot-id tile. Either way the state is slot-ordered
-    (pack * Bph, K): logical lane g * pack + s."""
+    (pack * Bph, K): logical lane g * pack + s. ``check_slots`` False
+    leaves the refusal of slot ids outside [0, pack) to the caller."""
     if not 2 <= pack <= _PACK_MAX:
         raise ValueError(f"pack must lie in [2, {_PACK_MAX}]; got {pack}")
     B, WL = values.shape
@@ -668,10 +676,53 @@ def _packed_operands(state: MixtureState, values, counts, K: int,
                 f"and a (Bph, 128) slot tile; got values "
                 f"{tuple(values.shape)}, seg_mask {tuple(seg_mask.shape)}")
         slot = seg_mask.to(torch.int64)
-        if bool(((slot < 0) | (slot >= pack)).any()):
+        if check_slots and bool(((slot < 0) | (slot >= pack)).any()):
             raise ValueError(f"slot ids must lie in [0, {pack})")
     _check(state, values, counts, K, tiers, state_rows=pack * Bph)
     return values.contiguous(), counts.contiguous(), slot.contiguous()
+
+
+def slot_ranges(slot, pack: int):
+    """(Bph, pack, 2) int64 column ranges [start, end) of K3's slots, read
+    off the (Bph, 128) slot tile: a slot's first run of columns. Both
+    packings give every slot one contiguous range (uniform: W columns
+    from s * W; mixed: its width from the running offset); columns that no
+    member owns carry slot 0 and count 0 behind the last slot and belong
+    to no range. A slot without columns gets (0, 0)."""
+    Bph = slot.shape[0]
+    col = torch.arange(_LANES, device=slot.device)
+    owns = slot[:, None, :] == torch.arange(pack, device=slot.device)[
+        None, :, None]                                     # (Bph, pack, 128)
+    some = owns.any(-1)
+    start = owns.to(torch.int64).argmax(-1)
+    after = ~owns & (col[None, None, :] >= start[..., None])
+    end = torch.where(after.any(-1), after.to(torch.int64).argmax(-1),
+                      torch.full_like(start, _LANES))
+    zero = torch.zeros_like(start)
+    return torch.stack([torch.where(some, start, zero),
+                        torch.where(some, end, zero)], -1).view(Bph, pack, 2)
+
+
+def block_threads(SL: int, tree: bool = False) -> int:
+    """Threads of the block that runs one lane of ``SL`` 128-column rows:
+    a thread per column, whole rows, at most 1,024 (512 for the tree
+    forms, whose node array costs registers). A lane with more rows takes
+    them in turns of the block's rows, to and fro: the threads of the
+    first rows, the dearest, get the last or none."""
+    cap = (_TREE_THREADS if tree else _CHAIN_THREADS) // _LANES
+    return _LANES * min(max(SL, 1), cap)
+
+
+def block_shared_bytes(K: int, SL: int, pack: int = 1,
+                       tree: bool = False) -> int:
+    """Dynamic shared memory of the block that runs one lane (``smem_bytes``
+    in ``sweep.cu``): (w, r) of its pack * K chains, the columns' slots and
+    runs, the slots' first and last run, and the 2K rows of reduction
+    cells, one cell a block row and run."""
+    rows = block_threads(SL, tree) // _LANES
+    runs = 2 * pack + 4 if pack > 1 else _LANES // 32
+    return 4 * (2 * pack * K + 2 * K * ((rows * runs) | 1)
+                + 2 * _LANES + 2 * pack)
 
 
 def _slot_sums(masks):
@@ -763,12 +814,15 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
-def build_library(verbose: bool = False, source: str = "sweep.cu") -> str:
+def build_library(verbose: bool = False, source: str = "sweep.cu",
+                  defines: Tuple[str, ...] = ()) -> str:
     """Compile ``csrc/<source>`` into ``build/`` (keyed by a hash of the
     source, the shared headers and the flags) unless that library exists;
-    returns its path."""
+    returns its path. ``defines`` are preprocessor symbols of a profiling
+    build (``scripts/sweep_phases.py``)."""
     path = os.path.join(_CSRC, source)
-    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+    flags = _NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    h = hashlib.sha1(" ".join(flags).encode())
     for p in [path] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(p, "rb") as f:
             h.update(f.read())
@@ -779,7 +833,7 @@ def build_library(verbose: bool = False, source: str = "sweep.cu") -> str:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, path]
+    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp, path]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -791,22 +845,27 @@ def build_library(verbose: bool = False, source: str = "sweep.cu") -> str:
     return out
 
 
+def _bind(path: str):
+    """Load a build of ``sweep.cu`` and declare its entry points."""
+    lib = ctypes.CDLL(path)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.basicrta_sweep_stats.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                         i, i, i, i, i, p]
+    lib.basicrta_sweep_stats.restype = i
+    lib.basicrta_segment.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                     i, i, i, i, i, i, i, f, f, f, i, i, p]
+    lib.basicrta_segment.restype = i
+    lib.basicrta_segment_packed.argtypes = [p, p, p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, i, i, i,
+                                            i, i, f, f, f, i, i, p]
+    lib.basicrta_segment_packed.restype = i
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.basicrta_sweep_stats.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                             i, i, i, i, p]
-        lib.basicrta_sweep_stats.restype = i
-        lib.basicrta_segment.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                         i, i, i, i, i, i, i, f, f, f, i, p]
-        lib.basicrta_segment.restype = i
-        lib.basicrta_segment_packed.argtypes = [p, p, p, p, p, p, p, p, p,
-                                                i, i, i, i, i, i, i, i, i,
-                                                i, i, f, f, f, i, p]
-        lib.basicrta_segment_packed.restype = i
-        _lib = lib
+        _lib = _bind(build_library())
     return _lib
 
 
@@ -853,10 +912,39 @@ def sweep_stats(seed: int, state: MixtureState, values, counts, K: int,
     rc = _library().basicrta_sweep_stats(
         w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
         ns.data_ptr(), ts.data_ptr(), B, V, K, tiers[0], tiers[1],
-        group_size(B, V, K + 3), _int32(seed), int(tree), stream)
+        group_size(B, V, K + 3), _int32(seed), int(tree),
+        block_threads(V // _LANES, tree), stream)
     _raise_on(rc, "sweep_stats")
     _count_launch(sweep_stats, tree)
     return ns, ts
+
+
+def _int32(x: int) -> int:
+    """Python int -> the int32 with the same low 32 bits."""
+    x = int(x) & _M32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _launch_segment(lib, stream, seed: int, sweep_offset: int, w, r, v, c,
+                    cfg: GibbsConfig, n_blocks: int, tiers, tree: bool):
+    """Allocate K2's outputs beside ``v`` and launch it from ``lib``, a
+    build of ``sweep.cu`` (:func:`_bind`), on ``stream``."""
+    K = cfg.ncomp
+    B, V = v.shape
+    W = torch.empty((B, n_blocks, K), dtype=torch.float32, device=v.device)
+    R = torch.empty_like(W)
+    wf = torch.empty((B, K), dtype=torch.float32, device=v.device)
+    rf = torch.empty_like(wf)
+    rc = lib.basicrta_segment(
+        w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
+        W.data_ptr(), R.data_ptr(), wf.data_ptr(), rf.data_ptr(),
+        B, V, K, tiers[0], tiers[1],
+        group_size(B, V, rows_per_lane(K, tree)), _int32(seed),
+        _int32(sweep_offset), cfg.g, n_blocks, cfg.alpha_eff,
+        cfg.gamma_shape, cfg.gamma_rate, int(tree),
+        block_threads(V // _LANES, tree), stream)
+    _raise_on(rc, "segment")
+    return MixtureState(wf, rf), W, R
 
 
 def segment(seed: int, sweep_offset: int, state: MixtureState, values,
@@ -870,31 +958,89 @@ def segment(seed: int, sweep_offset: int, state: MixtureState, values,
     if values.device.type == "cpu":
         return segment_torch(seed, sweep_offset, state, values, counts, cfg,
                              n_blocks, tiers, tree)
-    K = cfg.ncomp
-    _check(state, values, counts, K, tiers)
-    w, r, v, c = _cuda_inputs(state, values, counts, K)
-    B, V = v.shape
-    W = torch.empty((B, n_blocks, K), dtype=torch.float32, device=v.device)
-    R = torch.empty_like(W)
-    wf = torch.empty((B, K), dtype=torch.float32, device=v.device)
-    rf = torch.empty_like(wf)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = _library().basicrta_segment(
-        w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
-        W.data_ptr(), R.data_ptr(), wf.data_ptr(), rf.data_ptr(),
-        B, V, K, tiers[0], tiers[1],
-        group_size(B, V, rows_per_lane(K, tree)), _int32(seed),
-        _int32(sweep_offset), cfg.g, n_blocks, cfg.alpha_eff,
-        cfg.gamma_shape, cfg.gamma_rate, int(tree), stream)
-    _raise_on(rc, "segment")
+    _check(state, values, counts, cfg.ncomp, tiers)
+    w, r, v, c = _cuda_inputs(state, values, counts, cfg.ncomp)
+    out = _launch_segment(
+        _library(), torch.cuda.current_stream(v.device).cuda_stream, seed,
+        sweep_offset, w, r, v, c, cfg, n_blocks, tiers, tree)
     _count_launch(segment, tree)
+    return out
+
+
+def checked_ranges(slot, c, pack: int):
+    """K3's (Bph, pack, 2) int32 column ranges of the (Bph, 128) slot tile
+    (:func:`slot_ranges`), after refusing what the kernel does not take: a
+    slot id outside [0, pack), or a live column of ``c`` (Bph, SL * 128)
+    outside its slot's one contiguous range. One device-to-host read."""
+    Bph = slot.shape[0]
+    ranges = slot_ranges(slot, pack)
+    col = torch.arange(_LANES, device=slot.device)
+    mine = torch.gather(ranges, 1, slot.clamp(0, pack - 1)[..., None].expand(
+        Bph, _LANES, 2))
+    live = (c.view(Bph, -1, _LANES) != 0).any(1)
+    bad_id = (slot < 0) | (slot >= pack)
+    stray = live & ((col < mine[..., 0]) | (col >= mine[..., 1]))
+    flags = torch.stack([bad_id.any(), stray.any()]).tolist()
+    if flags[0]:
+        raise ValueError(f"slot ids must lie in [0, {pack})")
+    if flags[1]:
+        raise ValueError("the CUDA kernel takes slots that each own one "
+                         "contiguous column range; a live column lies "
+                         "outside its slot's")
+    return ranges.to(torch.int32).contiguous()
+
+
+# {id(tile): (tile ref, counts ref, their versions and pack, ranges)}: a
+# bucket's segments pass the same tile and counts, and only the first
+# pays for :func:`checked_ranges` and its read from the device
+_ranges_memo: dict = {}
+
+
+def _ranges_for(seg_mask, counts, slot, c, pack: int):
+    """The launch's ranges: analytic for the uniform packing (``seg_mask``
+    None), else :func:`checked_ranges`, remembered while the caller's tile
+    and counts tensors stay the same objects, unmodified."""
+    if seg_mask is None:
+        start = torch.arange(pack, device=c.device,
+                             dtype=torch.int32) * (_LANES // pack)
+        return torch.stack([start, start + _LANES // pack], -1).expand(
+            slot.shape[0], pack, 2).contiguous()
+    key = id(seg_mask)
+    stamp = (seg_mask._version, counts._version, pack)
+    hit = _ranges_memo.get(key)
+    if (hit is not None and hit[0]() is seg_mask and hit[1]() is counts
+            and hit[2] == stamp):
+        return hit[3]
+    ranges = checked_ranges(slot, c, pack)
+    _ranges_memo[key] = (
+        weakref.ref(seg_mask, lambda _: _ranges_memo.pop(key, None)),
+        weakref.ref(counts), stamp, ranges)
+    return ranges
+
+
+def _launch_packed(lib, stream, seed: int, sweep_offset: int, w, r, v, c,
+                   ranges, cfg: GibbsConfig, n_blocks: int, tiers, pack: int,
+                   tree: bool):
+    """Allocate K3's outputs beside ``v`` and launch it from ``lib``
+    (:func:`_bind`) on ``stream``, with the slots' column ranges
+    (:func:`checked_ranges`)."""
+    K = cfg.ncomp
+    Bph, V = v.shape
+    W = torch.empty((pack * Bph, n_blocks, K), dtype=torch.float32,
+                    device=v.device)
+    R = torch.empty_like(W)
+    wf = torch.empty((pack * Bph, K), dtype=torch.float32, device=v.device)
+    rf = torch.empty_like(wf)
+    rc = lib.basicrta_segment_packed(
+        w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
+        ranges.data_ptr(), W.data_ptr(), R.data_ptr(), wf.data_ptr(),
+        rf.data_ptr(), Bph, V, K, pack, tiers[0], tiers[1],
+        packed_group_size(Bph, V // _LANES, K, n_blocks, pack, tree=tree),
+        _int32(seed), _int32(sweep_offset), cfg.g, n_blocks,
+        cfg.alpha_eff, cfg.gamma_shape, cfg.gamma_rate, int(tree),
+        block_threads(V // _LANES, tree), stream)
+    _raise_on(rc, "segment_packed")
     return MixtureState(wf, rf), W, R
-
-
-def _int32(x: int) -> int:
-    """Python int -> the int32 with the same low 32 bits."""
-    x = int(x) & _M32
-    return x - (1 << 32) if x >= 1 << 31 else x
 
 
 def segment_packed(seed: int, sweep_offset: int, state: MixtureState,
@@ -906,37 +1052,25 @@ def segment_packed(seed: int, sweep_offset: int, state: MixtureState,
     launches its binary-splitting form (K4).
 
     CPU tensors run :func:`segment_packed_torch`; CUDA tensors launch the
-    kernel. Returns (state, W, R), slot-ordered, W/R
+    kernel, which takes slots that each own one contiguous column range,
+    as both packings give them. Returns (state, W, R), slot-ordered, W/R
     (pack * Bph, n_blocks, K)."""
     if values.device.type == "cpu":
         return segment_packed_torch(seed, sweep_offset, state, values,
                                     counts, cfg, n_blocks, tiers, pack,
                                     seg_mask, tree)
-    K = cfg.ncomp
-    v, c, slot = _packed_operands(state, values, counts, K, tiers, pack,
-                                  seg_mask)
+    v, c, slot = _packed_operands(state, values, counts, cfg.ncomp, tiers,
+                                  pack, seg_mask, check_slots=False)
     if slot.device != v.device:
         raise ValueError("CUDA kernel operands must all lie on one CUDA "
                          f"device; got {slot.device} and {v.device}")
-    w, r, v, c = _cuda_inputs(state, v, c, K)
-    slot = slot.to(torch.int32).contiguous()
-    Bph, V = v.shape
-    W = torch.empty((pack * Bph, n_blocks, K), dtype=torch.float32,
-                    device=v.device)
-    R = torch.empty_like(W)
-    wf = torch.empty((pack * Bph, K), dtype=torch.float32, device=v.device)
-    rf = torch.empty_like(wf)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = _library().basicrta_segment_packed(
-        w.data_ptr(), r.data_ptr(), v.data_ptr(), c.data_ptr(),
-        slot.data_ptr(), W.data_ptr(), R.data_ptr(), wf.data_ptr(),
-        rf.data_ptr(), Bph, V, K, pack, tiers[0], tiers[1],
-        packed_group_size(Bph, V // _LANES, K, n_blocks, pack, tree=tree),
-        _int32(seed), _int32(sweep_offset), cfg.g, n_blocks,
-        cfg.alpha_eff, cfg.gamma_shape, cfg.gamma_rate, int(tree), stream)
-    _raise_on(rc, "segment_packed")
+    w, r, v, c = _cuda_inputs(state, v, c, cfg.ncomp)
+    out = _launch_packed(
+        _library(), torch.cuda.current_stream(v.device).cuda_stream, seed,
+        sweep_offset, w, r, v, c, _ranges_for(seg_mask, counts, slot, c, pack),
+        cfg, n_blocks, tiers, pack, tree)
     _count_launch(segment_packed, tree)
-    return MixtureState(wf, rf), W, R
+    return out
 
 
 for _fn in (sweep_stats, segment, segment_packed):

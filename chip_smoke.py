@@ -12,7 +12,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    W313-scale residue x 2 chains, V = 1024, K = 15) and a 128-column
    bucket of >= 256 lanes; K3 on protein-300's production bucket with the
    most physical lanes (mixed widths, pack >= 4) and on a uniform pack-2
-   multi-row bucket, each with a bitwise resume check.
+   multi-row bucket, each with a bitwise resume check. K2 and K3 are timed
+   at 10 sweeps a launch and at 1,000 (the sweep loop apart from the
+   launch).
 3. the protein: 300 residues (basicrta_torch.scripts.workload) x 2 chains
    through the CLI ``gibbs`` (10,000 sweeps, one production segment) and
    ``cluster`` commands, on the production layout (K3 for the packed
@@ -23,7 +25,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    kernels, never a plain version. A profiled re-run of the
    post-processing counts its device activities per residue. Then the
    same 300 x 2 lanes run the same sweeps on the pow2 ladder (K2 only),
-   sampling only, so both layouts' lane-sweeps/s stand side by side.
+   sampling only, so both layouts' lane-sweeps/s stand side by side:
+   bucket after bucket (``run_batch``) and every bucket on the card at
+   once (``run_batches``, what ``run_residues`` does).
 4. full-length runs through ``Gibbs``: the verify recipe (5e4 events,
    niter 11,000, its 95% CI must cover the slowest truth tau = 50) and the
    flagship residue at the default GibbsConfig (110,000 sweeps).
@@ -59,6 +63,7 @@ import numpy as np
 
 PROTEIN_SWEEPS = 10_000   # one production segment (bench.py TIMED_SWEEPS)
 AB_SWEEPS, AB_REPS = 2000, 3   # phase 6's kernel A/B (scripts/abench.py)
+LONG_SWEEPS = 1000             # phase 2's long launches of K2 and K3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 
 
@@ -144,6 +149,7 @@ def kernel_checks(workload):
     buckets = pow2_buckets(workload)
     flag = [buckets[0][1]]
     report = {}
+    cfg_long = GibbsConfig(ncomp=K, niter=LONG_SWEEPS, g=100)
     for label, batch in buckets:
         B, V = batch.values.shape
         v = torch.tensor(batch.values, dtype=torch.float32, device=dev)
@@ -178,6 +184,9 @@ def kernel_checks(workload):
                         20)
         k2_plain = cuda_ms(
             lambda: cs.segment_torch(11, 0, st, v, c, cfg10, 1, tiers), 1)
+        # 1,000 sweeps a launch: the sweep loop apart from the launch
+        k2_long = cuda_ms(lambda: cs.segment(11, 0, st, v, c, cfg_long,
+                                             LONG_SWEEPS // 100, tiers), 3)
         report[label] = dict(B=B, V=V, tiers=tiers, k1_same=same,
                              bytes=int(8 * B * V + 16 * B * K),
                              work=needed_transcendentals(c, B, K),
@@ -187,7 +196,11 @@ def kernel_checks(workload):
                              k1_err=k1_err, k2_agree=agree, k2_err=k2_err,
                              k1_ms=k1_ms, k1_plain_ms=k1_plain,
                              k2_ms_10sweeps=k2_ms,
-                             k2_plain_ms_10sweeps=k2_plain)
+                             k2_plain_ms_10sweeps=k2_plain,
+                             k2_ms_1000sweeps=k2_long,
+                             k2_us_per_sweep=1e3 * k2_long / LONG_SWEEPS,
+                             threads=cs.block_threads(V // 128),
+                             smem_bytes=cs.block_shared_bytes(K, V // 128))
         print(f"phase 2 {label}: {json.dumps(report[label])}", flush=True)
 
     # 20 blocks of g = 100 on the flagship bucket; the plain version runs
@@ -274,13 +287,22 @@ def packed_checks(workload):
                                                tiers, bk.pack, seg), 20)
         plain = cuda_ms(lambda: cs.segment_packed_torch(
             11, 0, st, *args, cfg10, 1, tiers, bk.pack, seg), 1)
+        cfg_long = GibbsConfig(ncomp=K, niter=LONG_SWEEPS, g=100)
+        long_ms = cuda_ms(lambda: cs.segment_packed(
+            11, 0, st, *args, cfg_long, LONG_SWEEPS // 100, tiers, bk.pack,
+            seg), 3)
         report[label] = dict(pack=bk.pack, Bph=v.shape[0],
                              SL=v.shape[1] // 128, lanes=bk.size,
                              bytes=packed_bytes(v, Bs, K),
                              work=needed_transcendentals(c, bk.size, K),
                              tiers=tiers, k3_agree=agree, k3_err=err,
                              resume_bitwise=resume, k3_ms_10sweeps=ms,
-                             k3_plain_ms_10sweeps=plain)
+                             k3_plain_ms_10sweeps=plain,
+                             k3_ms_1000sweeps=long_ms,
+                             k3_us_per_sweep=1e3 * long_ms / LONG_SWEEPS,
+                             threads=cs.block_threads(v.shape[1] // 128),
+                             smem_bytes=cs.block_shared_bytes(
+                                 K, v.shape[1] // 128, bk.pack))
         print(f"phase 2 K3 {label}: {json.dumps(report[label])}", flush=True)
     return report
 
@@ -463,9 +485,16 @@ def protein_run(workload, tmp):
             batch.run_batch(b, cfg, engine="cuda")
             torch.cuda.synchronize()
             secs.append(round(time.time() - t0, 3))
-        print(f"phase 3 {name} per bucket (s): {secs}; total "
+        # and every bucket on the card at once, a stream each: what
+        # run_residues does
+        t0 = time.time()
+        batch.run_batches(layout_, cfg, engine="cuda")
+        torch.cuda.synchronize()
+        together = time.time() - t0
+        print(f"phase 3 {name} per bucket (s): {secs}; in series "
               f"{sum(secs):.3f} s -> {lane_sweeps / sum(secs):,.0f} "
-              f"lane-sweeps/s", flush=True)
+              f"lane-sweeps/s; concurrent {together:.3f} s -> "
+              f"{lane_sweeps / together:,.0f} lane-sweeps/s", flush=True)
         layouts[name] = (layout_, lane_sweeps / sum(secs))
     return launches, pow2_launches, layouts
 
@@ -499,8 +528,10 @@ def full_runs(workload, tmp):
     lo, tau, hi = g.estimate_tau()
     require(np.isfinite([lo, tau, hi]).all() and lo <= tau <= hi,
             "flagship tau")
-    print(f"phase 4 flagship default cfg: 110,000 sweeps in {run_s:.2f} s "
-          f"({110_000 / run_s:,.0f} sweeps/s), total with post-processing "
+    print(f"phase 4 flagship default cfg (K2's headline): 110,000 sweeps "
+          f"in {run_s:.2f} s ({110_000 / run_s:,.0f} sweeps/s, "
+          f"{1e6 * run_s / 110_000:.2f} us a sweep, 11 launches of "
+          f"10,000), total with post-processing "
           f"{time.time() - t0:.2f} s; tau {tau:.3f} CI [{lo:.3f}, {hi:.3f}]",
           flush=True)
 
@@ -851,6 +882,10 @@ def main():
         bound_ms=k6["bounds"][name][0], bound_by=k6["bounds"][name][1],
         library_ms=lib, **({} if lib is not None else {"library": none}))
         for name, src, rep, n, err, ms, plain_ms, lib in rows]}
+    for row in kernels["kernels"]:
+        print(f"phase 7 share {row['name']}: {row['ms']:.6g} ms is "
+              f"{100 * row['bound_ms'] / row['ms']:.4g}% of its bound's "
+              f"rate", flush=True)
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

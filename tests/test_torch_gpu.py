@@ -171,6 +171,120 @@ def test_run_batch_packed_buckets(dev):
     assert cuda_sweep.segment_packed.launches > before
 
 
+@pytest.mark.parametrize("shape", [(3, 1280, 6, (2, 5)),
+                                   (2, 2176, 15, (3, 9)),
+                                   (2, 1152, 4, (0, 2))])
+def test_wide_lanes_take_turns(dev, shape):
+    """Lanes of more than 1,024 columns, with a row count that the
+    block's 8 rows do not divide: 10 rows (a second turn, backwards, for
+    two block rows), 17 (a third turn for one) and 9. N_k totals stay
+    exact."""
+    B, V, K, tiers = shape
+    assert V > 1024
+    st, v, c = _bucket(B, V, K, tiers, 21, dev)
+    for tree in (False, True):
+        ns, ts = cuda_sweep.sweep_stats(11, st, v, c, K, tiers, tree=tree)
+        pn, pt = cuda_sweep.sweep_stats_torch(11, st, v, c, K, tiers,
+                                              tree=tree)
+        assert torch.equal(ns.sum(1), c.sum(1))
+        assert (ns == pn).float().mean().item() >= 0.99
+    cfg = GibbsConfig(ncomp=K, niter=2, g=1)
+    s2, W, R = cuda_sweep.segment(5, 0, st, v, c, cfg, 2, tiers)
+    _, W2, R2 = cuda_sweep.segment_torch(5, 0, st, v, c, cfg, 2, tiers)
+    ok = (torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1)
+          & torch.isclose(R, R2, rtol=1e-4).flatten(1).all(1))
+    assert ok.all()
+    s1, Wa, _ = cuda_sweep.segment(5, 0, st, v, c, cfg, 1, tiers)
+    s1, Wb, _ = cuda_sweep.segment(5, 1, s1, v, c, cfg, 1, tiers)
+    assert torch.equal(torch.cat([Wa, Wb], 1), W)
+    assert torch.equal(s1.rates, s2.rates)
+
+
+@pytest.mark.parametrize("SL", [5, 11])
+def test_packed_pack12_with_empty_slots(dev, SL):
+    """Mixed pack 12 with empty slots (in the middle and at the end) and
+    unowned columns, on 5 rows (640 threads) and 11 (1,024 threads, a
+    second turn for three block rows): every slot, the empty ones too,
+    against the plain version; bitwise resume."""
+    rng = np.random.default_rng(SL)
+    K, pack = 15, 12
+    widths = np.array([[10] * 12, [20, 0, 20, 0, 20, 0, 20, 0, 20, 0, 0, 0],
+                       [7, 9, 11, 13, 15, 17, 19, 0, 0, 0, 0, 0],
+                       [64, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1]])
+    B, Vmax = int((widths > 0).sum()), SL * 64
+    vals = np.ones((B, Vmax), np.float32)
+    cnts = np.zeros((B, Vmax), np.float32)
+    for i, w in enumerate(widths[widths > 0]):
+        n = SL * w - int(rng.integers(0, w))
+        vals[i, :n] = rng.uniform(0.1, 30.0, n)
+        raw = np.concatenate([rng.integers(17, 4000, n // 4),
+                              rng.integers(2, 17, n // 3),
+                              np.ones(n - n // 4 - n // 3)])
+        cnts[i, :n] = np.sort(raw)[::-1]
+    v_ph, c_ph, seg_id, slot = batch._pack_mixed(vals, cnts, widths, SL)
+    tiers = batch._mixed_row_tiers(c_ph)
+    assert 0 < tiers[0] < tiers[1] < SL
+    Bph = len(widths)
+    v = torch.tensor(v_ph.reshape(Bph, -1), device=dev)
+    c = torch.tensor(c_ph.reshape(Bph, -1), device=dev)
+    seg = torch.tensor(seg_id, device=dev)
+    st0 = init_mixture_params(K, device=dev)
+    st = MixtureState(st0.weights.repeat(Bph * pack, 1),
+                      st0.rates.repeat(Bph * pack, 1))
+    cfg = GibbsConfig(ncomp=K, niter=2, g=1)
+    for tree in (False, True):
+        s2, W, R = cuda_sweep.segment_packed(5, 0, st, v, c, cfg, 2, tiers,
+                                             pack, seg, tree=tree)
+        _, W2, R2 = cuda_sweep.segment_packed_torch(5, 0, st, v, c, cfg, 2,
+                                                    tiers, pack, seg,
+                                                    tree=tree)
+        ok = (torch.isclose(W, W2, rtol=1e-4).flatten(1).all(1)
+              & torch.isclose(R, R2, rtol=1e-4).flatten(1).all(1))
+        assert ok.float().mean().item() >= 0.95
+        assert ok[torch.tensor(slot, device=dev)].float().mean() >= 0.95
+        s1, Wa, Ra = cuda_sweep.segment_packed(5, 0, st, v, c, cfg, 1, tiers,
+                                               pack, seg, tree=tree)
+        s1, Wb, Rb = cuda_sweep.segment_packed(5, 1, s1, v, c, cfg, 1, tiers,
+                                               pack, seg, tree=tree)
+        assert torch.equal(torch.cat([Wa, Wb], 1), W)
+        assert torch.equal(torch.cat([Ra, Rb], 1), R)
+        assert torch.equal(s1.weights, s2.weights)
+
+
+def test_packed_kernel_refuses_scattered_slots(dev):
+    """A slot whose live columns are not one contiguous range is the plain
+    version's business, not the kernel's."""
+    st, v, c = _bucket(2, 128, 3, (0, 1), 8, dev)
+    st = MixtureState(st.weights.repeat(2, 1), st.rates.repeat(2, 1))
+    seg = (torch.arange(128, device=dev) % 2).float().expand(2, 128)
+    cfg = GibbsConfig(ncomp=3, niter=1, g=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_sweep.segment_packed(1, 0, st, v, c, cfg, 1, (0, 1), 2,
+                                  seg.contiguous())
+
+
+def test_run_residues_buckets_on_streams_equal_run_batch(dev):
+    """Every bucket on a stream of its own gives each bucket's own
+    chain."""
+    rng = np.random.default_rng(6)
+    times = {f"R{i}": np.repeat(np.arange(1, n) * 0.1,
+                                rng.integers(1, 30, n - 1))
+             for i, n in enumerate(rng.integers(10, 900, 30))}
+    cfg = GibbsConfig(ncomp=5, niter=200, g=10, seed=2)
+    lanes = {f"{k}#{ch}": t for k, t in times.items() for ch in range(2)}
+    buckets = batch.bucket_residues(lanes, ladder="pow2")
+    assert len(buckets) >= 3
+    got = batch.run_residues(times, cfg, n_chains=2, ladder="pow2",
+                             engine="cuda", segment_blocks=7)
+    for b in buckets:
+        res = batch.run_batch(b, cfg, segment_blocks=20, engine="cuda")
+        for i, name in enumerate(res.names):
+            k, ch = name.rsplit("#", 1)
+            np.testing.assert_array_equal(got[k][0][int(ch)],
+                                          res.mcweights[i])
+            np.testing.assert_array_equal(got[k][1][int(ch)], res.mcrates[i])
+
+
 def test_prng_kernel_matches_plain(dev):
     u = device_prng.draw_kernel("uniform", 97, device=dev)
     assert torch.equal(u, device_prng.draw_plain("uniform", 97, device=dev))
