@@ -1,7 +1,9 @@
 """basicrta_torch — the PyTorch/CUDA port of basicrta_tpu.
 
-The per-residue Gibbs main path on one NVIDIA H100: residence times are
-bucketed into lanes (``sampler.batch``), every lane runs its collapsed
+From a trajectory file to τ on one NVIDIA H100: topologies and
+trajectories are read by ``io`` (the C++ codec in ``native/``), contact
+frames are extracted by torch ops and merged into residence events
+(``contacts``), residence times are bucketed into lanes (``sampler.batch``), every lane runs its collapsed
 sweeps inside one hand-written CUDA kernel (``sampler.cuda_sweep``,
 ``csrc/sweep.cu``), and the thinned samples are clustered and reduced to
 τ with a credible interval (``postprocess``, ``protein.driver``).

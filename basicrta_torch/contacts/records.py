@@ -43,6 +43,17 @@ class ContactMeta:
 
 
 @dataclasses.dataclass
+class FrameBatch:
+    """One streamed chunk of trajectory."""
+    frame_ids: np.ndarray   # (F,) int64
+    times: np.ndarray       # (F,) float64 [ns]
+    positions: np.ndarray   # (F, A, 3) float32 [A]
+    # (F, 3) orthorhombic box lengths, or (F, 3, 3) triclinic box matrix
+    # (GROMACS-reduced rows) [A]
+    box: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
 class ContactRecords:
     """Primary contact map: one row per (frame, sel1 residue, sel2 residue)
     pair with any-atom distance below the map cutoff."""

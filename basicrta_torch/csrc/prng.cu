@@ -6,7 +6,11 @@
 // draw_uniform / draw_binom / draw_gamma, tiny Pallas kernels that emit the
 // same samplers' draws on a (256, 128) tile with lane id 1.
 //
-// What bounds it: nothing worth tuning; one launch writes 128 KB. The
+// What bounds it: one (256, 128) tile is 128 KB and costs a launch; a launch
+// over thousands of tiles (blockIdx.y; tile t draws with seed + t *
+// seed_stride, so its bits are those of a one-tile launch at that seed) is
+// bound by the bytes it writes or by its samplers' transcendentals
+// (basicrta_torch/scripts/roofline.py prng_bound). The
 // point is that the draws come from the very device code the sweep
 // kernels run (samplers.cuh, built with the same flags), with the JAX
 // package's call sites: the uniform on site 1; binom_full with its
@@ -26,10 +30,11 @@ using namespace basicrta;
 enum Kind { kUniform = 0, kBinomLgamma = 1, kBinomH4 = 2, kGammaEarly = 3 };
 
 __global__ void __launch_bounds__(kLanes)
-prng_kernel(float* out, int kind, int seed, float n, float p, float a) {
-  const uint32_t row = blockIdx.x, col = threadIdx.x;
+prng_kernel(float* out, int kind, int seed, int seed_stride, float n, float p,
+            float a) {
+  const uint32_t row = blockIdx.x, col = threadIdx.x, tile = blockIdx.y;
   const uint32_t fe = fmix(row * kElemMul + col);
-  const Rng rng = make_rng(uint32_t(seed), 1u);
+  const Rng rng = make_rng(uint32_t(seed) + tile * uint32_t(seed_stride), 1u);
   float x;
   switch (kind) {
     case kUniform:
@@ -45,17 +50,20 @@ prng_kernel(float* out, int kind, int seed, float n, float p, float a) {
       x = gamma_mt(rng, 1, fe, a);
       break;
   }
-  out[size_t(row) * kLanes + col] = x;
+  out[(size_t(tile) * gridDim.x + row) * kLanes + col] = x;
 }
 
 }  // namespace
 
-extern "C" int basicrta_prng_draws(float* out, int rows, int kind, int seed,
-                                   float n, float p, float a, void* stream) {
-  if (kind < kUniform || kind > kGammaEarly) {
+extern "C" int basicrta_prng_draws(float* out, int rows, int tiles, int kind,
+                                   int seed, int seed_stride, float n, float p,
+                                   float a, void* stream) {
+  if (kind < kUniform || kind > kGammaEarly || rows < 1 || tiles < 1 ||
+      tiles > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  prng_kernel<<<rows, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, kind, seed, n, p, a);
+  prng_kernel<<<dim3(rows, tiles), kLanes, 0,
+                static_cast<cudaStream_t>(stream)>>>(out, kind, seed,
+                                                     seed_stride, n, p, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,9 @@
 
 The port's own copies of the JAX package's ``ops.surv`` helpers that the
 port calls: the timestep of a set of residence times, the empirical
-credible interval, and error-bar offsets (reference util.py:78-99 and
+credible interval, error-bar offsets, the rounding precision of a
+timestep, and the synthetic hyperexponential data of the tests and the
+smoke run (reference util.py:78-99, 508-513, 596-608 and
 gibbs.py:146-153).
 """
 
@@ -43,3 +45,34 @@ def ci_bars(tau: np.ndarray) -> np.ndarray:
     ``[[max - lo, ...], [hi - max, ...]]``."""
     tau = np.asarray(tau)
     return np.array([tau[:, 1] - tau[:, 0], tau[:, 2] - tau[:, 1]])
+
+
+def decimals_of(ts: float) -> int:
+    """Rounding precision that preserves multiples of the timestep: the
+    count of decimal digits for fractional timesteps (0.1 -> 1, 0.25 -> 2)
+    and minus the count of trailing zeros for integral ones (1.0 -> 0,
+    10.0 -> -1), from the exact decimal exponent."""
+    from decimal import Decimal
+    return -Decimal(str(float(ts))).normalize().as_tuple().exponent
+
+
+def simulate_hyperexp(n: int, weights, rates, rng=None,
+                      sort: bool = True) -> np.ndarray:
+    """``n`` draws from a hyperexponential mixture: a component by the
+    weights, then an exponential waiting time at its rate by inverse CDF."""
+    rng = np.random.default_rng() if rng is None else rng
+    weights = np.asarray(weights, dtype=np.float64)
+    rates = np.asarray(rates, dtype=np.float64)
+    comp = rng.choice(len(weights), size=int(n), p=weights / weights.sum())
+    x = -np.log(rng.random(int(n))) / rates[comp]
+    if sort:
+        x.sort()
+    return x
+
+
+def discretize_times(times: np.ndarray, ts: float) -> np.ndarray:
+    """Snap continuous times to the timestep grid (>= ts), so synthetic
+    data share the duplicate-heavy structure of real residence times."""
+    times = np.asarray(times, dtype=np.float64)
+    k = np.maximum(np.round(times / ts), 1.0)
+    return k * ts

@@ -62,13 +62,34 @@ def cutoff_from_filename(path: str) -> float:
 
 def residue_labels_for(events: ContactEvents,
                        resids: np.ndarray) -> List[str]:
-    """Residue labels 'X{resid}', the JAX package's fallback when no
-    topology is available; topology-derived labels like 'W313' come with
-    the port of ``io/``."""
-    if events.meta.top and os.path.exists(events.meta.top):
-        warnings.warn(f"topology labels are not read yet ({events.meta.top}"
-                      "); result directories will be named X<resid>",
-                      stacklevel=2)
+    """Labels like 'W313' from the topology named in the metadata; falls
+    back to 'X{resid}' when no topology is available
+    (reference gibbs.py:62-67 uses pickled AtomGroups instead)."""
+    top_path = events.meta.top
+    if top_path and os.path.exists(top_path):
+        try:
+            from basicrta_torch.io.topology import convert_aa_code
+            from basicrta_torch.io.universe import read_topology
+            top = read_topology(top_path)
+            out = []
+            for resid in resids:
+                rn = top.resnames[top.resids == resid]
+                try:
+                    out.append(f"{convert_aa_code(str(rn[0]))}{resid}"
+                               if len(rn) else f"X{resid}")
+                except ValueError:
+                    out.append(f"X{resid}")
+            return out
+        except Exception as e:  # noqa: BLE001
+            # falling back to X-prefixed labels changes the result
+            # directory names (basicrta-{cutoff}/X313 vs W313): say so
+            # loudly instead of silently splitting the results tree
+            # between reruns
+            warnings.warn(
+                f"could not read {top_path} for residue labels "
+                f"({type(e).__name__}: {e}); falling back to X-prefixed "
+                "labels; result directories will be named X<resid>",
+                stacklevel=2)
     return [f"X{r}" for r in resids]
 
 

@@ -11,7 +11,15 @@ battery runs on them with the reference's thresholds.
 
 Each ``draw_*`` runs the plain version (``cuda_sweep._Rng`` /
 ``_binom_full`` / ``_gamma_mt``) for ``device='cpu'`` and launches the
-kernel for a CUDA device; ``draw_kernel.launches`` counts launches.
+kernel for a CUDA device; ``draw_kernel.launches`` counts launches. One
+launch draws ``tiles`` tiles, tile t with seed ``seed + t * SEED_STRIDE``:
+its bits are those of a one-tile launch at that seed, so the battery draws
+each sampler's whole sample in one launch without changing a draw.
+
+One tile costs a launch and says nothing of the kernel; :func:`time_draws`
+times it over ``TIMING_TILES`` tiles (512 MiB of output) by CUDA events,
+beside its bound (``roofline.prng_bound``) and the one PyTorch call that
+draws the same law at the same size.
 
 Usage (on a machine with a CUDA device)::
 
@@ -30,6 +38,12 @@ import torch
 from basicrta_torch.sampler import cuda_sweep as cs
 
 ROWS = 256           # (ROWS, 128) tile per draw
+SEED_STRIDE = 31     # tile t of a launch draws with seed + 31 t
+TIMING_TILES = 4096  # tiles of a timed launch: 512 MiB of f32 draws
+_PLAIN_CHUNK = 128   # tiles the plain version draws at a time
+# (kind, n, p, a) of the timed samplers
+TIMED = (("uniform", 0.0, 0.0, 0.0), ("binom_lgamma", 5000.0, 0.47, 0.0),
+         ("binom_h4", 5000.0, 0.47, 0.0), ("gamma", 0.0, 0.0, 3.7))
 _KINDS = {"uniform": 0, "binom_lgamma": 1, "binom_h4": 2, "gamma": 3}
 # forms of the reference's battery that no port kernel draws
 NOT_RUN = ("binom btrd", "binom btrd_sl", "binom btrd_nat",
@@ -42,7 +56,7 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(cs.build_library(source="prng.cu"))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.basicrta_prng_draws.argtypes = [p, i, i, i, f, f, f, p]
+        lib.basicrta_prng_draws.argtypes = [p, i, i, i, i, i, f, f, f, p]
         lib.basicrta_prng_draws.restype = i
         _lib = lib
     return _lib
@@ -57,42 +71,63 @@ def _form(btrs_mode) -> str:
                      "kernels; use True or 'btrd_nat_h4'")
 
 
-def draw_plain(kind: str, seed: int, n: float = 0.0, p: float = 0.0,
-               a: float = 0.0, device="cpu"):
-    """The plain version: the (ROWS, 128) draws of ``kind`` from the
-    sweep's plain samplers, element id row * 0x27D4EB2F + col."""
-    device = torch.device(device)
-    draw_plain.calls += 1
+def _plain_tiles(kind, seeds, n, p, a, device):
+    """(len(seeds), ROWS, 128) plain draws, tile t seeded ``seeds[t]``:
+    the per-lane hash state of ``cuda_sweep._Rng`` carries one seed a
+    tile."""
+    T = len(seeds)
     rows = torch.arange(ROWS, device=device, dtype=torch.int64)[:, None]
     cols = torch.arange(cs._LANES, device=device, dtype=torch.int64)[None]
-    fe = cs._murmur_fmix((rows * cs._ELEM_MUL + cols) & cs._M32)[None]
-    rng = cs._Rng(int(seed), torch.ones(1, device=device,
-                                        dtype=torch.int64))
+    fe = cs._murmur_fmix((rows * cs._ELEM_MUL + cols) & cs._M32)
+    fe = fe[None].expand(T, ROWS, cs._LANES)
+    rng = cs._Rng(0, torch.ones(T, device=device, dtype=torch.int64))
+    seeds = torch.as_tensor(seeds, device=device, dtype=torch.int64)
+    rng.h0 = (((seeds & cs._M32) * 0x9E3779B9) & cs._M32) ^ 0x85EBCA6B
     full = lambda x: torch.full(fe.shape, float(x), device=device)  # noqa
     if kind == "uniform":
-        out = rng.uniform(fe)
-    elif kind in ("binom_lgamma", "binom_h4"):
-        out = cs._binom_full(rng, fe, full(n), full(p), kind == "binom_h4")
-    elif kind == "gamma":
-        out = cs._gamma_mt(rng, fe, full(a))
-    else:
-        raise ValueError(f"unknown draw kind {kind!r}")
-    return out[0]
+        return rng.uniform(fe)
+    if kind in ("binom_lgamma", "binom_h4"):
+        return cs._binom_full(rng, fe, full(n), full(p), kind == "binom_h4")
+    if kind == "gamma":
+        return cs._gamma_mt(rng, fe, full(a))
+    raise ValueError(f"unknown draw kind {kind!r}")
+
+
+def draw_plain(kind: str, seed: int, n: float = 0.0, p: float = 0.0,
+               a: float = 0.0, device="cpu", tiles: int = 1):
+    """The plain version: ``tiles`` (ROWS, 128) tiles of draws of ``kind``
+    from the sweep's plain samplers, element id row * 0x27D4EB2F + col,
+    tile t seeded ``seed + t * SEED_STRIDE``. One tile comes back as
+    (ROWS, 128), several as (tiles, ROWS, 128)."""
+    device = torch.device(device)
+    draw_plain.calls += 1
+    seeds = [int(seed) + t * SEED_STRIDE for t in range(tiles)]
+    out = torch.cat([_plain_tiles(kind, seeds[lo:lo + _PLAIN_CHUNK], n, p, a,
+                                  device)
+                     for lo in range(0, tiles, _PLAIN_CHUNK)])
+    return out[0] if tiles == 1 else out
 
 
 def draw_kernel(kind: str, seed: int, n: float = 0.0, p: float = 0.0,
-                a: float = 0.0, device="cuda"):
-    """K5: the same draws from the CUDA kernel; CPU devices run
-    :func:`draw_plain`."""
+                a: float = 0.0, device="cuda", tiles: int = 1, out=None):
+    """K5: the same draws from one launch of the CUDA kernel (into ``out``
+    when given); CPU devices run :func:`draw_plain`."""
     device = torch.device(device)
     if device.type == "cpu":
-        return draw_plain(kind, seed, n, p, a, device)
+        return draw_plain(kind, seed, n, p, a, device, tiles)
     if kind not in _KINDS:
         raise ValueError(f"unknown draw kind {kind!r}")
-    out = torch.empty((ROWS, cs._LANES), dtype=torch.float32, device=device)
+    shape = (ROWS, cs._LANES) if tiles == 1 else (tiles, ROWS, cs._LANES)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+    elif (tuple(out.shape) != shape or out.dtype != torch.float32
+          or not out.is_contiguous() or out.device.type != "cuda"):
+        raise ValueError(f"out must be a contiguous float32 CUDA tensor of "
+                         f"shape {shape}")
     rc = _library().basicrta_prng_draws(
-        out.data_ptr(), ROWS, _KINDS[kind], cs._int32(seed), float(n),
-        float(p), float(a), torch.cuda.current_stream(device).cuda_stream)
+        out.data_ptr(), ROWS, int(tiles), _KINDS[kind], cs._int32(seed),
+        SEED_STRIDE, float(n), float(p), float(a),
+        torch.cuda.current_stream(device).cuda_stream)
     cs._raise_on(rc, "prng_draws")
     draw_kernel.launches += 1
     return out
@@ -102,22 +137,74 @@ draw_plain.calls = 0
 draw_kernel.launches = 0
 
 
-def draw_uniform(seed: int, device="cpu"):
-    return draw_kernel("uniform", seed, device=device)
+def draw_uniform(seed: int, device="cpu", tiles: int = 1):
+    return draw_kernel("uniform", seed, device=device, tiles=tiles)
 
 
-def draw_binom(seed: int, n: float, p: float, btrs_mode=True, device="cpu"):
-    return draw_kernel(_form(btrs_mode), seed, n=n, p=p, device=device)
+def draw_binom(seed: int, n: float, p: float, btrs_mode=True, device="cpu",
+               tiles: int = 1):
+    return draw_kernel(_form(btrs_mode), seed, n=n, p=p, device=device,
+                       tiles=tiles)
 
 
-def draw_gamma(seed: int, a: float, device="cpu"):
+def draw_gamma(seed: int, a: float, device="cpu", tiles: int = 1):
     """The early-exit gamma (the conjugate draw's form)."""
-    return draw_kernel("gamma", seed, a=a, device=device)
+    return draw_kernel("gamma", seed, a=a, device=device, tiles=tiles)
 
 
 def collect(fn, reps: int, **kw) -> np.ndarray:
-    return np.concatenate([fn(97 + 31 * s, **kw).cpu().numpy().ravel()
-                           for s in range(reps)])
+    """``reps`` tiles of ``fn``'s draws in one launch: seeds 97, 128, ...,
+    tile after tile."""
+    return fn(97, tiles=reps, **kw).cpu().numpy().ravel()
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls, by CUDA
+    events after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_draws(device="cuda", tiles: int = TIMING_TILES, reps: int = 20):
+    """Each timed sampler's milliseconds on the card: one launch over
+    ``tiles`` tiles (``ms``), one tile (``launch_ms``: the launch's time,
+    not the kernel's), and the one PyTorch call that draws the same law at
+    the many-tile size (``library``, ``library_ms``). {kind: dict}."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError("timing the PRNG kernel needs a CUDA device")
+    shape = (tiles, ROWS, cs._LANES)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    report = {}
+    for kind, n, p, a in TIMED:
+        ms = _event_ms(lambda: draw_kernel(kind, 97, n, p, a, device, tiles,
+                                           out=out), reps)
+        launch_ms = _event_ms(lambda: draw_kernel(kind, 97, n, p, a, device),
+                              reps)
+        if kind == "uniform":
+            name, call = "torch.rand", lambda: torch.rand(shape, out=out)
+        elif kind == "gamma":
+            alpha = torch.full(shape, a, device=device)
+            name, call = "torch._standard_gamma", \
+                lambda: torch._standard_gamma(alpha)
+        else:
+            count = torch.full(shape, n, device=device)
+            prob = torch.full(shape, p, device=device)
+            name, call = "torch.binomial", lambda: torch.binomial(count, prob)
+        report[kind] = dict(n=n, p=p, a=a, tiles=tiles,
+                            draws=tiles * ROWS * cs._LANES, ms=ms,
+                            launch_ms=launch_ms, library=name,
+                            library_ms=_event_ms(call, reps))
+        del call
+    return report
 
 
 def _censored_ks(x, a):
@@ -202,6 +289,17 @@ def main() -> int:
         print(f"FAILED: {failures}")
         return 1
     print("device PRNG GOF battery: ALL PASS")
+    from basicrta_torch.scripts import roofline as rf
+    ceiling = rf.transcendental_ceiling()
+    for kind, r in time_draws().items():
+        bound_ms, by, per_draw = rf.prng_bound(kind, r["draws"], ceiling,
+                                               r["n"], r["p"], r["a"])
+        print(f"[time {kind}] {r['tiles']} tiles: {r['ms']:.4f} ms a launch "
+              f"({r['launch_ms']:.4f} ms for one tile: the launch's time); "
+              f"bound {bound_ms:.4f} ms by {by} ({per_draw:.3f} "
+              f"transcendentals a draw at one round, ceiling {ceiling:.4g} "
+              f"/s) = {100 * bound_ms / r['ms']:.1f}% of the bound's rate; "
+              f"{r['library']} {r['library_ms']:.4f} ms")
     return 0
 
 

@@ -18,6 +18,9 @@ reads the same in both packages):
   times the aggregate lane-sweeps/s, per lane, over the ceiling.
 - :func:`needed_transcendentals` — a lower bound on what one sweep of a
   bucket must compute on the card, for the sweep kernels' bounds.
+- :func:`prng_bound` — the same for a launch of the PRNG probe (K5): the
+  larger of the bytes it writes over the memory rate and its samplers'
+  transcendentals over the measured ceiling.
 
 Run on the card: ``python -m basicrta_torch.scripts.roofline`` prints the
 ceiling in ops/s beside the SFU's peak at the card's clock.
@@ -39,6 +42,7 @@ ITERS, TILES, ROWS, COLS = 2000, 64, 256, 128
 SCALE = 1e-9                # bench.py's step: x <- exp(x * 1e-9)
 CHECK_SCALE = -1.0          # a contraction that does not saturate at 1.0
 GAMMA_FLOOR = 3             # sqrt, log and exp every gamma draw computes
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 SMS = 132                   # streaming multiprocessors of an H100 SXM
 MUFU_PER_CLOCK = 16         # SFU exp2 results per clock per SM (Hopper)
 _lib = None
@@ -159,6 +163,51 @@ def needed_transcendentals(counts, lanes: int, K: int,
     transcendentals_per_sweep`, the reference layout's static count)."""
     cols = int((counts > 0).sum())
     return K * cols + (2 * K * lanes * GAMMA_FLOOR if conjugate else 0)
+
+
+def prng_transcendentals_per_draw(kind: str, n: float = 0.0, p: float = 0.0,
+                                  a: float = 0.0) -> float:
+    """A lower bound on the sqrt/log/exp one draw of the PRNG probe must
+    compute, counted as :func:`needed_transcendentals` counts a sweep's:
+    the set-up every draw computes plus ONE rejection round (the expected
+    number of rounds is above one; a bound takes the least).
+
+    - ``uniform``: none (hashes only).
+    - ``binom_*`` above n p = 10 (BTRS): sqrt(n p q) and the mode's terms
+      (``binom_h4``: one log; ``binom_lgamma``: one log and two log-gammas
+      of at least one log each), then a round whose accept test costs
+      three logs unless the squeeze takes it: the squeeze holds with
+      probability 0.86 v_r (|u| <= 0.43 and v <= v_r, independent
+      uniforms). At or below n p = 10 (inversion): exp and log of q^n.
+    - ``gamma``: ``GAMMA_FLOOR`` (sqrt, and the two logs of a round's
+      accept test), plus the boost's log and exp below a = 1.
+    """
+    if kind == "uniform":
+        return 0.0
+    if kind == "gamma":
+        return GAMMA_FLOOR + (2.0 if a < 1.0 else 0.0)
+    if kind not in ("binom_lgamma", "binom_h4"):
+        raise ValueError(f"unknown draw kind {kind!r}")
+    pe = min(p, 1.0 - p)
+    if n * pe <= 10.0:
+        return 2.0
+    b = 1.15 + 2.53 * (n * pe * (1.0 - pe)) ** 0.5
+    vr = 0.92 - 4.2 / b
+    setup = 2.0 if kind == "binom_h4" else 4.0
+    return setup + 3.0 * (1.0 - 0.86 * vr)
+
+
+def prng_bound(kind: str, draws: int, ceiling: float, n: float = 0.0,
+               p: float = 0.0, a: float = 0.0):
+    """The least milliseconds the card could take for ``draws`` f32 draws
+    of ``kind``: the larger of the bytes written over the memory rate and
+    the transcendentals needed over the measured exp ``ceiling``. Returns
+    (ms, 'bytes' | 'operations', transcendentals a draw)."""
+    per_draw = prng_transcendentals_per_draw(kind, n, p, a)
+    t_bytes = 4 * draws / HBM_BYTES_PER_S
+    t_ops = per_draw * draws / ceiling
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops >= t_bytes else "bytes", per_draw)
 
 
 def _phys(b) -> Optional[tuple]:

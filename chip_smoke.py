@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of basicrta_torch's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only 5,8]
+
+With no arguments every phase runs and the result lines are printed;
+``--only`` runs phase 1 and the named phases that stand alone (5, 8) and
+prints no result.
 
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``basicrta_torch/csrc`` (one nvcc per source, all started together).
+   ``basicrta_torch/csrc`` (one nvcc per source) and the trajectory codec
+   from ``basicrta_torch/native`` (g++), all started together.
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: K1/K2 on the pow2 flagship bucket (the 446,605-event
    W313-scale residue x 2 chains, V = 1024, K = 15) and a 128-column
@@ -32,7 +37,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    niter 11,000, its 95% CI must cover the slowest truth tau = 50) and the
    flagship residue at the default GibbsConfig (110,000 sweeps).
 5. the device-PRNG probe (K5) against its plain version (uniform bits
-   identical), then the goodness-of-fit battery on the kernel's draws.
+   identical; tile t of a many-tile launch bitwise a one-tile launch at
+   its seed), its time over 4,096 tiles in one launch beside the one-tile
+   (launch) time and ``torch.rand`` / ``torch.binomial`` /
+   ``torch._standard_gamma`` at the same size, then the goodness-of-fit
+   battery on the kernel's draws (one launch a sample).
 6. the tree multinomial (K4) in its three kernel forms against the plain
    tree: K1's and K2's on phase 2's pow2 buckets, K3's on its packed
    buckets, with K1-K3's pass rules and bitwise resume; exact totals and
@@ -42,6 +51,20 @@ Phases (each raises on failure, so any failure exits non-zero):
 7. the transcendental ceiling (K6) against its plain version (rtol 1e-6),
    the ceiling in exp/s beside the SFU peak, ``vpu_transcendental_util``
    of phase 3's production and pow2 layouts, and each kernel's bound.
+8. the contacts path, from a trajectory file to tau. 8a: the membrane
+   workload (14,800 atoms, 2,000 frames) written as ``.gro`` + ``.xtc``
+   with the port's codec, then the CLI's ``contacts``, ``gibbs`` (the three
+   residues with the most events, 10,000 sweeps) and ``cluster``; rows of
+   sampled frames are held against the plain host version
+   (``basicrta_torch.scripts.contacts_reference``), labels must come from
+   the topology, every tau must be finite with 0 <= lo <= hi, and the
+   sweep kernels must have launched. 8b: the bilayer workload (101,400
+   atoms, 48 frames) from an XTC file through ``Universe.iter_batches``
+   and ``MapContacts.run`` under both wire formats: the pruned path must
+   be taken with no dense fallback, its rows must equal the dense
+   kernel's on one batch and the host version's on sampled frames; warm
+   frames/s, decode, host prepare and device seconds a frame, and the
+   device's busy share by ``torch.profiler`` are printed.
 
 Output: one JSON line of per-kernel results (each with its bound, and the
 time of one PyTorch call that computes the same function where there is
@@ -64,7 +87,7 @@ import numpy as np
 PROTEIN_SWEEPS = 10_000   # one production segment (bench.py TIMED_SWEEPS)
 AB_SWEEPS, AB_REPS = 2000, 3   # phase 6's kernel A/B (scripts/abench.py)
 LONG_SWEEPS = 1000             # phase 2's long launches of K2 and K3
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+MEMBRANE_FRAMES = 2000         # phase 8a's trajectory
 
 
 def require(cond, what):
@@ -307,6 +330,36 @@ def packed_checks(workload):
     return report
 
 
+def _device_busy(fn):
+    """(wall seconds, device-busy seconds, device activities) of ``fn``
+    under torch.profiler: the union of the device activities' spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if not _device_busy.warm:
+        # the first profile of a process pays for starting the tracer
+        with profile(activities=acts):
+            torch.cuda.synchronize()
+        _device_busy.warm = True
+    t0 = time.time()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e6, len(spans)
+
+
+_device_busy.warm = False
+
+
 def protein_run(workload, tmp):
     """Phase 3: the CLI main path on the 300-residue protein (production
     layout, batched post-processing), a profiled post-processing pass, and
@@ -426,27 +479,13 @@ def protein_run(workload, tmp):
         f = os.path.join(base, lab, f"gibbs_{PROTEIN_SWEEPS}.npz")
         if os.path.exists(f):
             loaded[lab] = Gibbs.load(f)
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        driver.finish_batch(loaded, save=False)
-        torch.cuda.synchronize()
-    prof_s = time.time() - t0
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in dev_events)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    prof_s, busy, n_acts = _device_busy(
+        lambda: driver.finish_batch(loaded, save=False))
     print(f"phase 3 post-processing profiled: {len(loaded)} residues in "
           f"{prof_s:.2f} s (profiler on), "
-          f"{len(dev_events) / len(loaded):,.0f} device activities per "
-          f"residue, device busy {busy / 1e6:.3f} s "
-          f"({100 * busy / 1e6 / prof_s:.1f}%)", flush=True)
+          f"{n_acts / len(loaded):,.0f} device activities per "
+          f"residue, device busy {busy:.3f} s "
+          f"({100 * busy / prof_s:.1f}%)", flush=True)
 
     # the same lanes and sweeps on the pow2 ladder: K2's path, sampling only
     times = {f"X{i + 1}": t for i, t in workload.items()}
@@ -537,8 +576,8 @@ def full_runs(workload, tmp):
 
 
 def prng_checks():
-    """Phase 5: K5 against its plain version, then the GOF battery on the
-    kernel's draws."""
+    """Phase 5: K5 against its plain version, its many-tile times, then the
+    GOF battery on the kernel's draws."""
     import torch
     from basicrta_torch.scripts import device_prng as dp
 
@@ -551,18 +590,32 @@ def prng_checks():
                           ("binom_h4", 5000, 0.47, 0.0),
                           ("binom_h4", 16, 0.35, 0.0),
                           ("gamma", 0, 0, 0.0667), ("gamma", 0, 0, 3.7)):
-        x = dp.draw_kernel(kind, 97, n, p, a, device=dev)
-        y = dp.draw_plain(kind, 97, n, p, a, device=dev)
+        # three tiles in one launch: the battery's shape
+        x = dp.draw_kernel(kind, 97, n, p, a, device=dev, tiles=3)
+        y = dp.draw_plain(kind, 97, n, p, a, device=dev, tiles=3)
         same = torch.isclose(x, y, rtol=1e-4, atol=0).float().mean().item()
         require(same >= 0.999, f"K5 {kind} agrees in {same:.4f}")
         err = max(err, (x - y).abs().max().item())
-    ms = cuda_ms(lambda: dp.draw_kernel("binom_h4", 97, 5000, 0.47,
-                                        device=dev), 20)
-    plain_ms = cuda_ms(lambda: dp.draw_plain("binom_h4", 97, 5000, 0.47,
-                                             device=dev), 2)
-    n = torch.full((256, 128), 5000.0, device=dev)
-    p = torch.full((256, 128), 0.47, device=dev)
-    library_ms = cuda_ms(lambda: torch.binomial(n, p), 20)
+        for t in range(3):
+            require(torch.equal(x[t], dp.draw_kernel(
+                kind, 97 + t * dp.SEED_STRIDE, n, p, a, device=dev)),
+                f"K5 {kind}: tile {t} of a many-tile launch differs from "
+                "the one-tile launch at its seed")
+    times = dp.time_draws(dev)
+    for kind, r in times.items():
+        print(f"phase 5 K5 time {kind}: {json.dumps(r)}", flush=True)
+    row = times["binom_h4"]
+    # the last tile of the timed launch against the plain version
+    big = dp.draw_kernel("binom_h4", 97, row["n"], row["p"], device=dev,
+                         tiles=row["tiles"])
+    last = 97 + (row["tiles"] - 1) * dp.SEED_STRIDE
+    y = dp.draw_plain("binom_h4", last, row["n"], row["p"], device=dev)
+    same = torch.isclose(big[-1], y, rtol=1e-4, atol=0).float().mean().item()
+    require(same >= 0.999, f"K5 tile {row['tiles'] - 1} agrees in {same:.4f}")
+    del big
+    plain_ms = cuda_ms(lambda: dp.draw_plain(
+        "binom_h4", 97, row["n"], row["p"], device=dev, tiles=row["tiles"]),
+        1)
     dp.draw_kernel.launches = dp.draw_plain.calls = 0
     failures, not_run = dp.run_battery(
         dev, out=lambda line: print(f"phase 5 {line}", flush=True))
@@ -570,10 +623,12 @@ def prng_checks():
     require(dp.draw_plain.calls == 0, "the battery drew plain versions")
     require(not failures, f"GOF battery failed: {failures}")
     print(f"phase 5 K5: uniform bits identical; max_abs_err {err}; binom "
-          f"(5000, 0.47) tile {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"(5000, 0.47) x {row['tiles']} tiles {row['ms']:.4f} ms a launch "
+          f"(one tile, the launch's time: {row['launch_ms']:.4f} ms), plain "
+          f"{plain_ms:.2f} ms, {row['library']} {row['library_ms']:.4f} ms; "
           f"battery passed on {launches} kernel launches", flush=True)
-    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms)
+    return dict(launches=launches, err=err, ms=row["ms"], plain_ms=plain_ms,
+                library_ms=row["library_ms"], times=times)
 
 
 def tree_checks(workload, production):
@@ -725,7 +780,7 @@ def tree_checks(workload, production):
     return dict(report=report, err=err, launches=tree_launches, ab=ab)
 
 
-def roofline_checks(layouts, k1k2, k3):
+def roofline_checks(layouts, k1k2, k3, k5):
     """Phase 7: K6 against its plain version, the ceiling (K6's path, the
     counts read around it), vpu_transcendental_util of phase 3's
     production and pow2 layouts, and each kernel's bound."""
@@ -794,14 +849,12 @@ def roofline_checks(layouts, k1k2, k3):
         "segment": (10 * f["work"], f["bytes"] + 8 * f["B"] * K, 10 * sweep),
         "segment_packed": (10 * m["work"], m["bytes"], 10 * packed),
         "suff_stats_tree": (10 * m["work"], m["bytes"], 10 * packed),
-        "prng_draws": (rf.ROWS * rf.COLS, 4 * rf.ROWS * rf.COLS,
-                       rf.ROWS * rf.COLS),
         "transcendental_ceiling": (rf.ceiling_ops(), 4 * rf.ROWS * rf.COLS,
                                    rf.ceiling_ops()),
     }
     bounds = {}
     for name, (trans, nbytes, static) in work.items():
-        t_ops, t_bytes = trans / peak, nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = trans / peak, nbytes / rf.HBM_BYTES_PER_S
         bounds[name] = (1e3 * max(t_ops, t_bytes),
                         "operations" if t_ops >= t_bytes else "bytes")
         print(f"phase 7 bound {name}: {bounds[name][0]:.6g} ms "
@@ -809,9 +862,262 @@ def roofline_checks(layouts, k1k2, k3):
               f"bytes; {1e3 * trans / ceiling:.6g} ms at the measured "
               f"ceiling; the reference layout's static count {static:,} "
               f"takes {1e3 * static / ceiling:.6g} ms there)", flush=True)
+    # K5 at its timed size: the bytes written against the transcendentals
+    # its draws need at one rejection round, over the measured ceiling
+    for kind, r in k5["times"].items():
+        b_ms, by, per_draw = rf.prng_bound(kind, r["draws"], ceiling, r["n"],
+                                           r["p"], r["a"])
+        if kind == "binom_h4":
+            bounds["prng_draws"] = (b_ms, by)
+        print(f"phase 7 bound prng_draws {kind}: {b_ms:.6g} ms ({by}; "
+              f"{r['draws']:,} draws, {4 * r['draws']:,} bytes, "
+              f"{per_draw:.4f} transcendentals a draw at 1 expected round, "
+              f"the least); {r['ms']:.6g} ms a launch is "
+              f"{100 * b_ms / r['ms']:.4g}% of the bound's rate; "
+              f"{r['library']} {r['library_ms']:.6g} ms = "
+              f"{r['library_ms'] / r['ms']:.3f}x the kernel", flush=True)
     return dict(ceiling=ceiling, peak=peak, launches=launches, err=err,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bounds=bounds)
+
+
+def scan_breakdown(label, mc, u, B, frames=None):
+    """Where a contact scan's time goes: a cold run of ``mc`` over the
+    frames of ``u``, a warm run (frames/s, the host's prepare and collect
+    seconds and the device's by CUDA events) and a run under
+    torch.profiler (the device's busy share). Returns the warm run's
+    records."""
+    import torch
+    n = u.n_frames if frames is None else len(frames)
+    t0 = time.time()
+    for _ in u.iter_batches(B, frames):
+        pass
+    decode = (time.time() - t0) / n
+    mc.run(u.iter_batches(B, frames))                  # cold
+    mc.time_device = True
+    torch.cuda.synchronize()
+    t0 = time.time()
+    records = mc.run(u.iter_batches(B, frames))        # warm
+    torch.cuda.synchronize()
+    warm = time.time() - t0
+    st = mc.stats
+    mc.time_device = False
+    wall, busy, acts = _device_busy(lambda: mc.run(u.iter_batches(B, frames)))
+    print(f"phase 8 {label}: {n} frames, {B} a batch, upload "
+          f"{mc.cfg.upload_dtype}; warm {n / warm:.2f} frames/s "
+          f"({warm:.3f} s); per frame: decode {decode:.5f} s (the reader "
+          f"alone, main thread), host prepare {st['prepare_s'] / n:.5f} s "
+          f"(prefetch thread), collect {st['collect_s'] / n:.5f} s (wait + "
+          f"rows, main thread), device {st['device_s'] / n:.5f} s (CUDA "
+          f"events); passes {json.dumps(st['passes'])}, "
+          f"{st['retries_exact']} exact-fit retries, "
+          f"{st['fallbacks_dense']} dense fallbacks, "
+          f"{st['dense_overflows']} dense-transfer overflows, cap "
+          f"{st['cap']}; profiled run {wall:.3f} s, device busy {busy:.3f} s "
+          f"= {100 * busy / wall:.1f}%, {acts / n:.0f} device activities a "
+          f"frame; {len(records)} rows", flush=True)
+    return records, st
+
+
+def contacts_file_to_tau(tmp):
+    """Phase 8a: trajectory file -> contacts -> events -> tau through the
+    CLI, on the membrane workload."""
+    import re
+    from basicrta_torch import cli
+    from basicrta_torch.contacts.records import ContactEvents, ContactRecords
+    from basicrta_torch.io.universe import Universe
+    from basicrta_torch.sampler import cuda_sweep as cs
+    from basicrta_torch.scripts import contacts_reference as ref
+    from basicrta_torch.scripts.workload import (make_membrane_frames,
+                                                 write_membrane_files)
+
+    work = os.path.join(tmp, "membrane")
+    os.makedirs(work)
+    t0 = time.time()
+    batches, r1, r2, A1 = make_membrane_frames(n_frames=MEMBRANE_FRAMES,
+                                               batch=100)
+    made = time.time() - t0
+    gro, xtc = write_membrane_files(work, batches, r1, r2)
+    del batches
+    print(f"phase 8a files: {MEMBRANE_FRAMES} frames x {len(r1) + len(r2)} "
+          f"atoms made in {made:.2f} s, written in "
+          f"{time.time() - t0 - made:.2f} s ({os.path.getsize(xtc) / 1e6:.1f}"
+          f" MB of XTC)", flush=True)
+    counters = (cs.segment, cs.segment_packed, cs.sweep_stats)
+    plains = (cs.segment_torch, cs.segment_packed_torch,
+              cs.sweep_stats_torch)
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.calls = 0
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.time()
+        with open("cli.log", "w") as log, contextlib.redirect_stdout(log), \
+                contextlib.redirect_stderr(log):
+            cli.main(["contacts", "--top", gro, "--traj", xtc, "--sel1",
+                      "protein", "--sel2", "resname CHOL", "--cutoff",
+                      "7.0"])
+        contacts_s = time.time() - t0
+        records = ContactRecords.load("contacts.npz")
+        events = ContactEvents.load("contacts_7.0.npz")
+        require(len(events) > 0 and len(records) > 0, "no contacts found")
+        require(records.meta.ts == 0.1 or abs(records.meta.ts - 0.1) < 1e-6,
+                f"inferred ts {records.meta.ts}")
+        resids, counts = np.unique(events.sel1_resids, return_counts=True)
+        top3 = resids[np.argsort(-counts)[:3]]
+        t1 = time.time()
+        with open("cli.log", "a") as log, contextlib.redirect_stdout(log), \
+                contextlib.redirect_stderr(log):
+            cli.main(["gibbs", "--contacts", "contacts_7.0.npz", "--niter",
+                      str(PROTEIN_SWEEPS), "--resid",
+                      *[str(r) for r in top3]])
+        gibbs_s = time.time() - t1
+        cli.main(["cluster", "--cutoff", "7.0", "--niter",
+                  str(PROTEIN_SWEEPS)])
+        wall = time.time() - t0
+        taus = np.load("tausout.npy")
+        labels = sorted(os.listdir("basicrta-7.0"))
+    finally:
+        os.chdir(cwd)
+    launches = {f.__name__: f.launches for f in counters}
+    launches.update({f.__name__: f.calls for f in plains})
+    require(launches["segment"] + launches["segment_packed"] > 0,
+            f"no sweep kernel launched: {launches}")
+    require(all(launches[f.__name__] == 0 for f in plains),
+            f"plain versions ran on the contacts -> tau path: {launches}")
+    named = [d for d in labels if not d.startswith(".")]
+    require(len(named) == 3 and all(re.match(r"^[A-WYZ]\d+$", d)
+                                    for d in named),
+            f"labels do not come from the topology: {named}")
+    require(taus.shape == (3, 4) and np.isfinite(taus).all(),
+            f"tausout {taus.shape}")
+    require(np.all((0 <= taus[:, 2]) & (taus[:, 2] <= taus[:, 3])
+                   & (taus[:, 1] > 0)), f"malformed tau table {taus}")
+
+    # the CLI took the u16 wire format (an XTC input): the format's bound,
+    # sqrt(3) grid steps, comes on top of the 1e-4 A
+    u = Universe(gro, xtc)
+    idx1, idx2 = u.select_atoms("protein"), u.select_atoms("resname CHOL")
+    res = u.topology.resids
+    sample = [0, 1, MEMBRANE_FRAMES // 2, MEMBRANE_FRAMES - 1]
+
+    def read_frame(f):
+        coords, _, box = u._read_frames([f])
+        return coords[0], box[0]
+
+    step = max(float(np.ptp(read_frame(f)[0], axis=0).max())
+               for f in sample) / 65535.0
+    atol = 1e-4 + 3 ** 0.5 * step
+    shared, lone, err = ref.check_records(
+        records, sample, read_frame, idx1, res[idx1], idx2, res[idx2], 10.0,
+        atol=atol)
+    require(shared > 0, "the sampled frames hold no contacts")
+    print(f"phase 8a file -> tau: contacts {MEMBRANE_FRAMES} frames in "
+          f"{contacts_s:.2f} s = {MEMBRANE_FRAMES / contacts_s:.1f} frames/s "
+          f"end to end (u16 upload, dense kernel), {len(records)} rows, "
+          f"{len(events)} events over {len(resids)} residues; rows of frames "
+          f"{sample} against the host version: {shared} equal, {lone} within "
+          f"{atol:.2g} A of the cutoff on one side only, max |d| {err:.3g} "
+          f"A; gibbs on {named} ({counts[np.argsort(-counts)[:3]].tolist()} "
+          f"events) {gibbs_s:.2f} s; wall {wall:.2f} s; tau "
+          f"{taus[:, 1].round(3).tolist()} lo {taus[:, 2].round(3).tolist()} "
+          f"hi {taus[:, 3].round(3).tolist()}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    # where the dense scan's time goes, on the first 320 frames
+    head = np.arange(min(320, MEMBRANE_FRAMES))
+    from basicrta_torch.config import ContactConfig
+    from basicrta_torch.contacts.mapper import MapContacts
+    for upload in ("u16", "f32"):
+        mc = MapContacts(idx1, res[idx1], idx2, res[idx2],
+                         cfg=ContactConfig(upload_dtype=upload))
+        _, st = scan_breakdown(f"membrane dense {upload} (14,800 atoms)", mc,
+                               u, 32, head)
+        require(st["passes"]["dense"] == -(-len(head) // 32)
+                and st["passes"]["pruned"] == 0,
+                f"the membrane takes the dense kernel: {st}")
+
+
+def contacts_bilayer(tmp):
+    """Phase 8b: the bilayer workload from an XTC file through
+    Universe.iter_batches and MapContacts.run: the pruned path under both
+    wire formats, against the dense kernel and the host version."""
+    import torch
+    from basicrta_torch.config import ContactConfig
+    from basicrta_torch.contacts.mapper import MapContacts
+    from basicrta_torch.io.universe import Universe
+    from basicrta_torch.scripts import contacts_reference as ref
+    from basicrta_torch.scripts.workload import (make_membrane_frames_large,
+                                                 write_membrane_files)
+
+    work = os.path.join(tmp, "bilayer")
+    os.makedirs(work)
+    batches, r1, r2, A1 = make_membrane_frames_large()
+    n_frames = sum(len(b.frame_ids) for b in batches)
+    gro, xtc = write_membrane_files(work, batches, r1, r2, "bilayer")
+    del batches
+    u = Universe(gro, xtc)
+    idx1, idx2 = u.select_atoms("protein"), u.select_atoms("resname CHOL")
+    res = u.topology.resids
+    require(len(idx1) + len(idx2) == 101_400, "bilayer selections")
+    B = 16
+
+    def mapper(upload, **kw):
+        return MapContacts(idx1, res[idx1], idx2, res[idx2],
+                           cfg=ContactConfig(upload_dtype=upload,
+                                             frames_per_batch=B, **kw))
+
+    records = {}
+    for upload in ("u16", "f32"):
+        mc = mapper(upload)
+        require(mc._prefilter_active(), "the bilayer is past the crossover")
+        records[upload], st = scan_breakdown(
+            f"bilayer pruned {upload} (101,400 atoms)", mc, u, B)
+        require(st["passes"]["pruned"] >= n_frames // B
+                and st["passes"]["dense"] + st["passes"]["dense_raw"] == 0
+                and st["fallbacks_dense"] == 0,
+                f"the pruned path was not taken throughout: {st}")
+
+    # one batch through the dense kernel: the pruned rows must be its rows
+    first = next(iter(u.iter_batches(B)))
+    dense_mc = mapper("f32", prefilter=False)
+    dense_mc.meta.ts = 0.1
+    t0 = time.time()
+    dense = dense_mc.run([first])
+    torch.cuda.synchronize()
+    dense_s = time.time() - t0
+    require(dense_mc.stats["passes"]["dense"] == 1, "the dense path")
+    pr = records["f32"]
+    head = pr.frames < B
+    require(np.array_equal(pr.frames[head], dense.frames)
+            and np.array_equal(pr.sel1_resids[head], dense.sel1_resids)
+            and np.array_equal(pr.sel2_resids[head], dense.sel2_resids),
+            "pruned rows differ from the dense kernel's")
+    diff = float(np.abs(pr.min_dist[head] - dense.min_dist).max())
+    require(diff <= 1e-5, f"pruned min_dist differs from dense by {diff}")
+
+    def read_frame(f):
+        coords, _, box = u._read_frames([f])
+        return coords[0], box[0]
+
+    sample = [0, n_frames - 1]
+    shared, lone, err = ref.check_records(
+        pr, sample, read_frame, idx1, res[idx1], idx2, res[idx2], 10.0)
+    step = max(float(np.ptp(read_frame(f)[0], axis=0).max())
+               for f in sample) / 65535.0
+    s16, l16, e16 = ref.check_records(
+        records["u16"], sample, read_frame, idx1, res[idx1], idx2, res[idx2],
+        10.0, atol=1e-4 + 3 ** 0.5 * step)
+    require(shared > 0 and s16 > 0, "the sampled frames hold no contacts")
+    print(f"phase 8b bilayer checks: pruned rows of the first {B} frames == "
+          f"the dense kernel's ({int(head.sum())} rows, max |d| {diff:.3g} "
+          f"A; the dense batch took {dense_s:.3f} s = "
+          f"{dense_s / B:.4f} s/frame); frames {sample} against the host "
+          f"version: f32 {shared} rows equal, {lone} at the cutoff, max |d| "
+          f"{err:.3g} A (atol 1e-4); u16 {s16} equal, {l16} at the cutoff, "
+          f"max |d| {e16:.3g} A (atol {1e-4 + 3 ** 0.5 * step:.2g})",
+          flush=True)
 
 
 def main():
@@ -821,6 +1127,7 @@ def main():
         return 1
     from concurrent.futures import ThreadPoolExecutor
 
+    from basicrta_torch.io import native
     from basicrta_torch.sampler import cuda_sweep as cs
     from basicrta_torch.scripts.workload import make_workload
 
@@ -831,13 +1138,27 @@ def main():
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.time()
     sources = ("sweep.cu", "prng.cu", "ceiling.cu")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
         builds = [pool.submit(cs.build_library, True, src)
                   for src in sources]
+        builds.append(pool.submit(native.build_library))
         for b in builds:
             b.result()
     print(f"phase 1 build: {time.time() - t0:.2f} s", flush=True)
 
+    if len(sys.argv) > 1:
+        # python3 chip_smoke.py --only 5,8: the phases that stand alone,
+        # while iterating on them; prints no result line
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
+        require(only <= {"5", "8"}, "--only takes 5 and/or 8")
+        if "5" in only:
+            prng_checks()
+        if "8" in only:
+            with tempfile.TemporaryDirectory() as tmp:
+                contacts_file_to_tau(tmp)
+                contacts_bilayer(tmp)
+        print(f"partial run (phases 1, {sorted(only)}): no result")
+        return 0
     workload = make_workload()
     report = kernel_checks(workload)
     k3 = packed_checks(workload)
@@ -846,7 +1167,10 @@ def main():
         full_runs(workload, tmp)
     k5 = prng_checks()
     k4 = tree_checks(workload, layouts["production"][0])
-    k6 = roofline_checks(layouts, report, k3)
+    k6 = roofline_checks(layouts, report, k3, k5)
+    with tempfile.TemporaryDirectory() as tmp:
+        contacts_file_to_tau(tmp)
+        contacts_bilayer(tmp)
     require("jax" not in sys.modules, "jax was imported")
     require("basicrta_tpu" not in sys.modules, "basicrta_tpu was imported")
 

@@ -401,3 +401,90 @@ def test_ceiling_kernel_matches_plain(dev):
     assert not torch.allclose(out, ref, rtol=1e-5, atol=0)
     ceiling = roofline.transcendental_ceiling(dev)
     assert 1e11 < ceiling <= roofline.sfu_peak(roofline.max_sm_clock_mhz())
+
+
+@pytest.mark.parametrize("kind,n,p,a", [("uniform", 0, 0, 0),
+                                        ("binom_h4", 5000, 0.47, 0),
+                                        ("binom_lgamma", 50, 0.3, 0),
+                                        ("gamma", 0, 0, 3.7)])
+def test_prng_many_tile_launch(dev, kind, n, p, a):
+    """One launch over several tiles: tile t bitwise the one-tile launch at
+    its seed, and the plain version's tile."""
+    many = device_prng.draw_kernel(kind, 97, n, p, a, device=dev, tiles=5)
+    assert many.shape == (5, device_prng.ROWS, 128)
+    for t in (0, 3, 4):
+        one = device_prng.draw_kernel(
+            kind, 97 + t * device_prng.SEED_STRIDE, n, p, a, device=dev)
+        assert torch.equal(many[t], one)
+    plain = device_prng.draw_plain(kind, 97, n, p, a, device=dev, tiles=5)
+    if kind == "uniform":
+        assert torch.equal(many, plain)
+    else:
+        close = torch.isclose(many, plain, rtol=1e-4, atol=0)
+        assert close.float().mean().item() >= 0.999
+    out = torch.empty_like(many)
+    assert device_prng.draw_kernel(kind, 97, n, p, a, device=dev, tiles=5,
+                                   out=out) is out
+    assert torch.equal(out, many)
+    with pytest.raises(ValueError, match="out must be"):
+        device_prng.draw_kernel(kind, 97, n, p, a, device=dev, tiles=4,
+                                out=out)
+
+
+def _contact_system(seed=3, F=6, R1=20, P1=5, R2=30, P2=4, spread=40.0):
+    rng = np.random.default_rng(seed)
+    c1 = rng.uniform(0, spread, (F, R1, 3))
+    c2 = rng.uniform(0, spread, (F, R2, 3))
+    pos = np.concatenate(
+        [(c1[:, :, None] + rng.normal(0, 1.0, (F, R1, P1, 3))).reshape(
+            F, -1, 3),
+         (c2[:, :, None] + rng.normal(0, 1.0, (F, R2, P2, 3))).reshape(
+            F, -1, 3)], axis=1).astype(np.float32)
+    r1 = np.repeat(np.arange(R1), P1)
+    r2 = np.repeat(np.arange(R2) + 100, P2)
+    box = np.tile(np.array([41.0, 43.0, 45.0], np.float32), (F, 1))
+    return pos, r1, r2, R1 * P1, box
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(), dict(transfer_cap=64), dict(transfer_cap=2),
+    dict(prefilter=True, prefilter_cap_min=16), dict(upload_dtype="u16"),
+    dict(prefilter=True, prefilter_cap=8), dict(use_pbc=False)])
+def test_contact_scan_on_the_card_equals_the_cpu(dev, cfg):
+    """MapContacts through the pinned upload, the copy stream and the
+    packed result copy gives the CPU scan's rows (distances to f32
+    rounding), on every transfer path."""
+    from basicrta_torch.config import ContactConfig
+    from basicrta_torch.contacts.mapper import MapContacts
+    from basicrta_torch.contacts.records import FrameBatch
+    pos, r1, r2, A1, box = _contact_system()
+    perm = np.random.default_rng(1).permutation(pos.shape[1])
+    idx1, idx2 = np.sort(perm[:A1]), np.sort(perm[A1:])   # scattered
+    recs = []
+    for device in ("cpu", dev):
+        mc = MapContacts(idx1, r1, idx2, r2, cfg=ContactConfig(**cfg),
+                         device=device)
+        mc.time_device = True
+        recs.append(mc.run(
+            [FrameBatch(np.arange(lo, lo + 2), np.arange(lo, lo + 2) * 0.1,
+                        pos[lo:lo + 2], box[lo:lo + 2])
+             for lo in range(0, 6, 2)]))
+    assert mc.stats["device_s"] > 0 and mc.stats["frames"] == 6
+    a, b = recs
+    assert len(a) == len(b) > 0
+    for f in ("frames", "sel1_resids", "sel2_resids", "times"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    np.testing.assert_allclose(a.min_dist, b.min_dist, atol=1e-5, rtol=0)
+
+
+def test_contact_scan_on_the_card_against_the_host_version(dev):
+    from basicrta_torch.contacts.mapper import MapContacts
+    from basicrta_torch.contacts.records import FrameBatch
+    from basicrta_torch.scripts import contacts_reference as ref
+    pos, r1, r2, A1, box = _contact_system(seed=9)
+    idx1, idx2 = np.arange(A1), np.arange(A1, pos.shape[1])
+    rec = MapContacts(idx1, r1, idx2, r2).run(
+        [FrameBatch(np.arange(6), np.arange(6) * 0.1, pos, box)])
+    shared, lone, err = ref.check_records(
+        rec, range(6), lambda f: (pos[f], box[f]), idx1, r1, idx2, r2, 10.0)
+    assert shared > 0 and err <= 1e-4

@@ -26,6 +26,11 @@ def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "basicrta_torch.scripts.abench" in mods
     assert "basicrta_torch.ops.diagnostics" in mods
+    for new in ("contacts.distances", "contacts.events", "contacts.mapper",
+                "contacts.quantize", "contacts.__main__", "io.amber",
+                "io.gmxdump", "io.native", "io.topology", "io.universe",
+                "scripts.contacts_reference", "scripts.workload"):
+        assert f"basicrta_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['basicrta_tpu'] = None\n"
             "sys.modules['jax'] = None\n"
@@ -81,3 +86,30 @@ def test_own_copies_equal_the_jax_package():
         np.testing.assert_array_equal(a[k], b[k])
     with pytest.raises(ValueError, match="draws"):
         td.split_rhat(W[:, :3])
+
+
+@pytest.mark.parametrize("kw", [{}, dict(map_cutoff=12.0, prefilter=False,
+                                         upload_dtype="u16")])
+def test_contact_config_fields_equal_jax(kw):
+    import dataclasses
+    from basicrta_tpu.config import ContactConfig as JContact
+    from basicrta_torch.config import ContactConfig
+    a, b = ContactConfig(**kw), JContact(**kw)
+    assert [f.name for f in dataclasses.fields(a)] == \
+        [f.name for f in dataclasses.fields(b)]
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def test_surv_helpers_equal_jax():
+    import numpy as np
+    from basicrta_tpu.ops import surv as js
+    from basicrta_torch.ops import surv as ts
+    for dt in (0.1, 0.25, 1.0, 10.0, 2e-3, 5):
+        assert ts.decimals_of(dt) == js.decimals_of(dt)
+    a = ts.simulate_hyperexp(500, [0.8, 0.2], [3.0, 0.1],
+                             np.random.default_rng(4))
+    b = js.simulate_hyperexp(500, [0.8, 0.2], [3.0, 0.1],
+                             np.random.default_rng(4))
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ts.discretize_times(a, 0.1),
+                                  js.discretize_times(b, 0.1))

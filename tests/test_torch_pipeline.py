@@ -226,7 +226,8 @@ def test_driver_input_errors(tmp_path):
     top = tmp_path / "top.gro"
     top.write_text("")
     ev.meta.top = str(top)
-    with pytest.warns(UserWarning, match="topology labels"):
+    # an unreadable topology: the loud fallback to X-prefixed labels
+    with pytest.warns(UserWarning, match="X-prefixed labels"):
         assert residue_labels_for(ev, np.array([313])) == ["X313"]
 
 

@@ -73,3 +73,49 @@ def test_battery_passes_on_the_plain_draws():
     assert "binom btrd_nat" in not_run
     assert any("btrd_nat_h4" in line for line in lines)
     assert lines[-1].startswith("not run")
+
+
+@pytest.mark.parametrize("kind,n,p,a", [("uniform", 0, 0, 0),
+                                        ("binom_lgamma", 5000, 0.47, 0),
+                                        ("binom_h4", 5000, 0.47, 0),
+                                        ("binom_h4", 16, 0.35, 0),
+                                        ("gamma", 0, 0, 0.0667),
+                                        ("gamma", 0, 0, 3.7)])
+def test_many_tile_launch_keeps_each_tiles_bits(kind, n, p, a):
+    """Plain version of the many-tile launch: tile t is bit for bit the
+    one-tile draw at seed + t * stride, also across the plain version's
+    chunks, so the battery's one launch a sample changes no draw."""
+    many = dp.draw_plain(kind, 97, n, p, a, tiles=3)
+    assert many.shape == (3, dp.ROWS, 128)
+    for t in range(3):
+        one = dp.draw_plain(kind, 97 + t * dp.SEED_STRIDE, n, p, a)
+        assert one.shape == (dp.ROWS, 128)
+        np.testing.assert_array_equal(many[t].numpy(), one.numpy())
+    # draw_kernel on the CPU is the plain version
+    other = dp.draw_kernel(kind, 5, n, p, a, device="cpu", tiles=2)
+    np.testing.assert_array_equal(
+        other[1].numpy(),
+        dp.draw_plain(kind, 5 + dp.SEED_STRIDE, n, p, a).numpy())
+
+
+def test_many_tile_chunks_and_the_batterys_sample(monkeypatch):
+    monkeypatch.setattr(dp, "_PLAIN_CHUNK", 2)
+    many = dp.draw_plain("uniform", 97, tiles=5)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(many.numpy(),
+                                  dp.draw_plain("uniform", 97,
+                                                tiles=5).numpy())
+    # collect(): the seeds 97, 128, ... of the reference's battery, in order
+    got = dp.collect(dp.draw_uniform, 3, device="cpu")
+    want = np.concatenate([dp.draw_uniform(97 + 31 * s).numpy().ravel()
+                           for s in range(3)])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_timing_needs_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dp.time_draws("cpu")
+    assert dp.TIMING_TILES * dp.ROWS * 128 * 4 == 512 * 2 ** 20

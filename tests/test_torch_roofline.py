@@ -147,3 +147,35 @@ def test_vpu_transcendental_util_is_bench_formula(workload):
     got = roofline.vpu_transcendental_util(batches, agg, cfg, ceiling)
     assert got == pytest.approx(ref, rel=1e-12)
     assert roofline.sfu_peak(1980.0) == pytest.approx(4.18176e12)
+
+
+def test_prng_bound_is_the_larger_of_bytes_and_transcendentals():
+    """K5's bound at its timed size: bytes written over the memory rate
+    against the draws' transcendentals (set-up + one round) over the
+    ceiling; ``bound_by`` names the larger."""
+    from basicrta_torch.scripts import device_prng as dp
+    rf = roofline
+    draws = dp.TIMING_TILES * dp.ROWS * 128
+    t_bytes = 1e3 * 4 * draws / rf.HBM_BYTES_PER_S
+    ms, by, per = rf.prng_bound("uniform", draws, 2.9e12)
+    assert (by, per) == ("bytes", 0.0) and ms == pytest.approx(t_bytes)
+    # BTRS at (5000, 0.47): sqrt + log, and 3 logs past the squeeze
+    b = 1.15 + 2.53 * (5000 * 0.47 * 0.53) ** 0.5
+    slow = 1.0 - 0.86 * (0.92 - 4.2 / b)
+    ms, by, per = rf.prng_bound("binom_h4", draws, 2.9e12, 5000, 0.47)
+    assert per == pytest.approx(2.0 + 3.0 * slow) and by == "bytes"
+    ms, by, per = rf.prng_bound("binom_lgamma", draws, 2.9e12, 5000, 0.47)
+    assert per == pytest.approx(4.0 + 3.0 * slow) and by == "operations"
+    assert ms == pytest.approx(1e3 * per * draws / 2.9e12) and ms > t_bytes
+    # p > 1/2 folds; inversion below n p = 10; the gamma's boost below 1
+    assert rf.prng_transcendentals_per_draw("binom_h4", 5000, 0.53) == \
+        pytest.approx(2.0 + 3.0 * slow)
+    assert rf.prng_transcendentals_per_draw("binom_h4", 16, 0.35) == 2.0
+    assert rf.prng_transcendentals_per_draw("gamma", a=3.7) == rf.GAMMA_FLOOR
+    assert rf.prng_transcendentals_per_draw("gamma", a=0.0667) == \
+        rf.GAMMA_FLOOR + 2
+    # a slower ceiling turns the same launch operation-bound
+    assert rf.prng_bound("binom_h4", draws, 1e12, 5000, 0.47)[1] == \
+        "operations"
+    with pytest.raises(ValueError, match="unknown draw kind"):
+        rf.prng_bound("normal", draws, 2.9e12)
