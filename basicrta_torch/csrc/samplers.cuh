@@ -47,6 +47,23 @@ __device__ __forceinline__ uint32_t elem_id(uint32_t row, uint32_t g,
   return (row * kElemMul + g) * kElemMul + col;
 }
 
+// The hash of call site `site`, round `t` under a lane's state h0: the
+// same for every element the lane draws.
+__device__ __forceinline__ uint32_t site_hash(uint32_t h0, int site, int t) {
+  return fmix(h0 ^ (uint32_t(site) * 0xC2B2AE35u + uint32_t(t)));
+}
+
+// The uniform of element `fe` from its site's hash.
+__device__ __forceinline__ float hash_uniform(uint32_t h, uint32_t fe) {
+  uint32_t bits = fmix(h ^ fe);
+  float u = float(int(bits >> 8)) * float(1.0 / 16777216.0);
+  return fmaxf(u, float(1.0 / 33554432.0));
+}
+
+// The uniform source of the sweep kernels; the samplers below take any
+// type with the same uniform(site, t, fe). hash_uniform(site_hash(...))
+// spelled out: written as that call, the sweep kernels compile to other
+// machine code (scripts/sass_diff.py), though to the same bits.
 struct Rng {
   uint32_t h0;  // seed * 0x9E3779B9 ^ lane * 0x85EBCA6B
   __device__ __forceinline__ float uniform(int site, int t,
@@ -159,59 +176,95 @@ __device__ __forceinline__ float binom_inversion(float u, float n, float p,
   return fminf(m, n);
 }
 
-// Requires n*p > 10, p <= 0.5. kH4: the btrd_nat_h4 accept test and site
-// layout (rounds 0-3 own two sites each, later rounds share the loop
+// BTRS in pieces: the per-(n, p) constants, one round's squeeze from its
+// two uniforms, and the slow accept test of a round the squeeze leaves
+// open. Requires n*p > 10, p <= 0.5. kH4: the btrd_nat_h4 accept test and
+// site layout (rounds 0-3 own two sites each, later rounds share the loop
 // body's two); otherwise the lgamma form with one shared pair of sites.
+struct BtrsSetup {
+  float b, a, c, vr, alpha, r, m, nm, hb, h, lpq;
+};
+
 template <bool kH4>
-__device__ float binom_btrs(const Rng& rng, int site0, uint32_t fe, float n,
-                            float p) {
+__device__ __forceinline__ BtrsSetup btrs_setup(float n, float p) {
+  BtrsSetup s;
   float q = 1.0f - p;
   float spq = sqrtf(n * p * q);
-  float b = 1.15f + 2.53f * spq;
-  float a = -0.0873f + 0.0248f * b + 0.01f * p;
-  float c = n * p + 0.5f;
-  float vr = 0.92f - 4.2f / b;
-  float alpha = (2.83f + 5.1f / b) * spq;
-  float r = fmaxf(p / q, kTiny);
-  float m = floorf((n + 1.0f) * p);
-  float nm = n - m + 1.0f;
-  float hb = 0.0f, h = 0.0f, lpq = 0.0f;
+  s.b = 1.15f + 2.53f * spq;
+  s.a = -0.0873f + 0.0248f * s.b + 0.01f * p;
+  s.c = n * p + 0.5f;
+  s.vr = 0.92f - 4.2f / s.b;
+  s.alpha = (2.83f + 5.1f / s.b) * spq;
+  s.r = fmaxf(p / q, kTiny);
+  s.m = floorf((n + 1.0f) * p);
+  s.nm = n - s.m + 1.0f;
+  s.hb = s.h = s.lpq = 0.0f;
   if (kH4) {
-    hb = (m + 0.5f) * log_f32(fmaxf((m + 1.0f) / (r * nm), kTiny)) +
-         stirling_tail(m) + stirling_tail(n - m);
+    s.hb = (s.m + 0.5f) * log_f32(fmaxf((s.m + 1.0f) / (s.r * s.nm), kTiny)) +
+           stirling_tail(s.m) + stirling_tail(n - s.m);
   } else {
-    lpq = log_f32(r);
-    h = gammaln_f32(m + 1.0f) + gammaln_f32(n - m + 1.0f);
+    s.lpq = log_f32(s.r);
+    s.h = gammaln_f32(s.m + 1.0f) + gammaln_f32(n - s.m + 1.0f);
   }
+  return s;
+}
+
+// Site of round t's first uniform (the second is on the next site).
+template <bool kH4>
+__device__ __forceinline__ int btrs_site(int site0, int t) {
+  return kH4 ? (t < kBtrsUnroll ? site0 + 2 * t : site0 + 2 * kBtrsUnroll)
+             : site0;
+}
+
+enum BtrsStep { kBtrsRetry = 0, kBtrsAccept = 1, kBtrsSlow = 2 };
+
+// The squeeze of one round, u centred on 0: k and us for the slow test.
+__device__ __forceinline__ int btrs_squeeze(const BtrsSetup& s, float n,
+                                            float u, float v, float& k,
+                                            float& us) {
+  us = 0.5f - fabsf(u);
+  k = floorf((2.0f * s.a / us + s.b) * u + s.c);
+  if (!(k >= 0.0f && k <= n)) return kBtrsRetry;
+  if (us >= 0.07f && v <= s.vr) return kBtrsAccept;
+  return kBtrsSlow;
+}
+
+template <bool kH4>
+__device__ __forceinline__ bool btrs_slow(const BtrsSetup& s, float n,
+                                          float k, float us, float v) {
+  float vv = logf(fmaxf(v * s.alpha / (s.a / (us * us) + s.b), kTiny));
+  if (kH4) {
+    float nk = n - k + 1.0f;
+    return vv <= (s.hb + (n + 1.0f) * logf(fmaxf(s.nm / nk, kTiny)) +
+                  (k + 0.5f) * logf(fmaxf(nk * s.r / (k + 1.0f), kTiny)) -
+                  stirling_tail(k) - stirling_tail(n - k));
+  }
+  return vv <= (s.h - gammaln_f32(k + 1.0f) - gammaln_f32(n - k + 1.0f) +
+                (k - s.m) * s.lpq);
+}
+
+// The squeeze is btrs_squeeze spelled out: through its step code the
+// sweep kernels compile to other machine code (scripts/sass_diff.py).
+template <bool kH4, class U>
+__device__ float binom_btrs(const U& rng, int site0, uint32_t fe, float n,
+                            float p) {
+  const BtrsSetup s = btrs_setup<kH4>(n, p);
   for (int t = 0; t < kBtrsRounds; ++t) {
-    int site = kH4 ? (t < kBtrsUnroll ? site0 + 2 * t
-                                      : site0 + 2 * kBtrsUnroll)
-                   : site0;
+    int site = btrs_site<kH4>(site0, t);
     float u = rng.uniform(site, t, fe) - 0.5f;
     float v = rng.uniform(site + 1, t, fe);
     float us = 0.5f - fabsf(u);
-    float k = floorf((2.0f * a / us + b) * u + c);
+    float k = floorf((2.0f * s.a / us + s.b) * u + s.c);
     if (!(k >= 0.0f && k <= n)) continue;
-    if (us >= 0.07f && v <= vr) return k;
-    float vv = logf(fmaxf(v * alpha / (a / (us * us) + b), kTiny));
-    bool slow;
-    if (kH4) {
-      float nk = n - k + 1.0f;
-      slow = vv <= (hb + (n + 1.0f) * logf(fmaxf(nm / nk, kTiny)) +
-                    (k + 0.5f) * logf(fmaxf(nk * r / (k + 1.0f), kTiny)) -
-                    stirling_tail(k) - stirling_tail(n - k));
-    } else {
-      slow = vv <= (h - gammaln_f32(k + 1.0f) - gammaln_f32(n - k + 1.0f) +
-                    (k - m) * lpq);
-    }
-    if (slow) return k;
+    if (us >= 0.07f && v <= s.vr) return k;
+    if (btrs_slow<kH4>(s, n, k, us, v)) return k;
   }
-  return m;
+  return s.m;
 }
 
 // Sites of one stage: the inversion uniform, then BTRS's.
-template <bool kH4>
-__device__ __forceinline__ float binom_full(const Rng& rng, int stage_site,
+template <bool kH4, class U>
+__device__ __forceinline__ float binom_full(const U& rng, int stage_site,
                                             uint32_t fe, float n, float p) {
   p = fminf(fmaxf(p, 0.0f), 1.0f);
   if (p <= 0.0f || n <= 0.0f) return 0.0f;
@@ -268,29 +321,64 @@ __device__ float normal_icdf(float p) {
   return num * q / den;
 }
 
+// Gamma(a, 1) in pieces: the per-a constants, one Marsaglia-Tsang round
+// from its two uniforms, and the a < 1 boost of the accepted sample.
+struct GammaSetup {
+  float boost, d, c;
+};
+
+__device__ __forceinline__ GammaSetup gamma_setup(float a) {
+  GammaSetup g;
+  g.boost = a < 1.0f ? 1.0f : 0.0f;
+  float a_eff = a + g.boost;
+  g.d = a_eff - float(1.0 / 3.0);
+  g.c = 1.0f / sqrtf(9.0f * g.d);
+  return g;
+}
+
+// True (and v) when the round accepts.
+__device__ __forceinline__ bool gamma_round(const GammaSetup& g, float ux,
+                                            float uu, float& v) {
+  float x = normal_icdf(ux);
+  float y = 1.0f + g.c * x;
+  v = y * (y * y);
+  return v > 0.0f && log_f32(uu) < 0.5f * x * x + g.d - g.d * v +
+                                       g.d * log_f32(fmaxf(v, kTiny));
+}
+
+// The draw from the sample d * v and the boost uniform ub. With a >= 1 it
+// is sample * 1 + (finite) * 0, bitwise fmaxf(sample, 1e-30f).
+__device__ __forceinline__ float gamma_finish(const GammaSetup& g,
+                                              float sample, float ub,
+                                              float a) {
+  float boosted = sample * exp_f32(log_f32(ub) / fmaxf(a, kTiny));
+  float out = sample * (1.0f - g.boost) + boosted * g.boost;
+  return fmaxf(out, 1e-30f);
+}
+
 // Gamma(a, 1): Marsaglia-Tsang rounds on sites (site0, site0+1), the a < 1
-// boost uniform on site0+2.
-__device__ float gamma_mt(const Rng& rng, int site0, uint32_t fe, float a) {
-  float boost = a < 1.0f ? 1.0f : 0.0f;
-  float a_eff = a + boost;
-  float d = a_eff - float(1.0 / 3.0);
-  float c = 1.0f / sqrtf(9.0f * d);
+// boost uniform on site0+2. The round and the finish are gamma_round and
+// gamma_finish spelled out: through those calls the sweep kernels compile
+// to other machine code (scripts/sass_diff.py).
+template <class U>
+__device__ float gamma_mt(const U& rng, int site0, uint32_t fe, float a) {
+  const GammaSetup g = gamma_setup(a);
   float v_acc = 1.0f;
   for (int t = 0; t < kMtRounds; ++t) {
     float x = normal_icdf(rng.uniform(site0, t, fe));
     float u = rng.uniform(site0 + 1, t, fe);
-    float y = 1.0f + c * x;
+    float y = 1.0f + g.c * x;
     float v = y * (y * y);
-    if (v > 0.0f &&
-        log_f32(u) < 0.5f * x * x + d - d * v + d * log_f32(fmaxf(v, kTiny))) {
+    if (v > 0.0f && log_f32(u) < 0.5f * x * x + g.d - g.d * v +
+                                     g.d * log_f32(fmaxf(v, kTiny))) {
       v_acc = v;
       break;
     }
   }
-  float sample = d * v_acc;
+  float sample = g.d * v_acc;
   float ub = rng.uniform(site0 + 2, 0, fe);
   float boosted = sample * exp_f32(log_f32(ub) / fmaxf(a, kTiny));
-  float out = sample * (1.0f - boost) + boosted * boost;
+  float out = sample * (1.0f - g.boost) + boosted * g.boost;
   return fmaxf(out, 1e-30f);
 }
 

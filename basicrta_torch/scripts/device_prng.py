@@ -9,9 +9,10 @@ Marsaglia-Tsang gamma of the conjugate draw — on a (256, 128) tile with
 lane id 1 and the JAX package's call sites, and the scipy goodness-of-fit
 battery runs on them with the reference's thresholds.
 
-Each ``draw_*`` runs the plain version (``cuda_sweep._Rng`` /
-``_binom_full`` / ``_gamma_mt``) for ``device='cpu'`` and launches the
-kernel for a CUDA device; ``draw_kernel.launches`` counts launches. One
+Each ``draw_*`` launches the kernel on the card, its default, and runs the
+plain version (``cuda_sweep._Rng`` / ``_binom_full`` / ``_gamma_mt``) only
+for ``device='cpu'``; without a CUDA device a launch raises.
+``draw_kernel.launches`` counts launches. One
 launch draws ``tiles`` tiles, tile t with seed ``seed + t * SEED_STRIDE``:
 its bits are those of a one-tile launch at that seed, so the battery draws
 each sampler's whole sample in one launch without changing a draw.
@@ -23,7 +24,10 @@ draws the same law at the same size.
 
 Usage (on a machine with a CUDA device)::
 
-    python -m basicrta_torch.scripts.device_prng
+    python -m basicrta_torch.scripts.device_prng [--stats] [--time-only]
+
+``--stats`` adds each timed sampler's counters from a
+``-DBASICRTA_PRNG_STATS`` build (:func:`draw_stats`).
 """
 
 from __future__ import annotations
@@ -48,18 +52,45 @@ _KINDS = {"uniform": 0, "binom_lgamma": 1, "binom_h4": 2, "gamma": 3}
 # forms of the reference's battery that no port kernel draws
 NOT_RUN = ("binom btrd", "binom btrd_sl", "binom btrd_nat",
            "gamma without early exit")
-_lib = None
+# counters of the stats build (csrc/prng.cu Counter), per launch; cycles
+# are sums over warps
+COUNTERS = ("lane_slots", "lane_rounds", "slow_slots", "slow_tests",
+            "warp_cycles", "round_cycles", "drain_cycles")
+_STATS = "BASICRTA_PRNG_STATS"
+_BTRS_ROUNDS = 12    # kBtrsRounds: a trace's slow-test bits, one a round
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cs.build_library(source="prng.cu"))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.basicrta_prng_draws.argtypes = [p, i, i, i, i, i, f, f, f, p]
-        lib.basicrta_prng_draws.restype = i
-        _lib = lib
-    return _lib
+def _bind(path: str):
+    """Load a build of ``prng.cu`` and declare its entry points."""
+    lib = ctypes.CDLL(path)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.basicrta_prng_draws.argtypes = [p, i, i, i, i, i, f, f, f, p]
+    lib.basicrta_prng_draws.restype = i
+    if hasattr(lib, "basicrta_prng_draws_stats"):
+        lib.basicrta_prng_draws_stats.argtypes = [p, p, p, i, i, i, i, i, f,
+                                                  f, f, p]
+        lib.basicrta_prng_draws_stats.restype = i
+    return lib
+
+
+def _library(stats: bool = False):
+    if stats not in _libs:
+        _libs[stats] = _bind(cs.build_library(
+            source="prng.cu", defines=(_STATS,) if stats else ()))
+    return _libs[stats]
+
+
+def _launch(lib, out, kind, seed, n, p, a, tiles, stream, trace=None,
+            counters=None) -> int:
+    """One launch of ``lib``'s K5 into ``out`` (ROWS x 128 x ``tiles``
+    draws); with ``trace`` and ``counters``, the stats entry point."""
+    args = (ROWS, int(tiles), _KINDS[kind], cs._int32(seed), SEED_STRIDE,
+            float(n), float(p), float(a), stream)
+    if trace is None:
+        return lib.basicrta_prng_draws(out.data_ptr(), *args)
+    return lib.basicrta_prng_draws_stats(out.data_ptr(), trace.data_ptr(),
+                                         counters.data_ptr(), *args)
 
 
 def _form(btrs_mode) -> str:
@@ -117,17 +148,20 @@ def draw_kernel(kind: str, seed: int, n: float = 0.0, p: float = 0.0,
         return draw_plain(kind, seed, n, p, a, device, tiles)
     if kind not in _KINDS:
         raise ValueError(f"unknown draw kind {kind!r}")
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"K5 launches on a CUDA device; got {device} "
+                           f"(cuda available: {torch.cuda.is_available()}); "
+                           "pass device='cpu' for the plain version")
     shape = (ROWS, cs._LANES) if tiles == 1 else (tiles, ROWS, cs._LANES)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=device)
     elif (tuple(out.shape) != shape or out.dtype != torch.float32
-          or not out.is_contiguous() or out.device.type != "cuda"):
-        raise ValueError(f"out must be a contiguous float32 CUDA tensor of "
-                         f"shape {shape}")
-    rc = _library().basicrta_prng_draws(
-        out.data_ptr(), ROWS, int(tiles), _KINDS[kind], cs._int32(seed),
-        SEED_STRIDE, float(n), float(p), float(a),
-        torch.cuda.current_stream(device).cuda_stream)
+          or not out.is_contiguous() or out.device.type != "cuda"
+          or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous, 16-byte aligned "
+                         f"float32 CUDA tensor of shape {shape}")
+    rc = _launch(_library(), out, kind, seed, n, p, a, tiles,
+                 torch.cuda.current_stream(device).cuda_stream)
     cs._raise_on(rc, "prng_draws")
     draw_kernel.launches += 1
     return out
@@ -137,17 +171,57 @@ draw_plain.calls = 0
 draw_kernel.launches = 0
 
 
-def draw_uniform(seed: int, device="cpu", tiles: int = 1):
+def layout_counts(trace: torch.Tensor) -> dict:
+    """The counters of one thread per element (K5 before its redesign)
+    from a stats launch's per-element trace (rounds | slow-test rounds <<
+    8): a warp of 32 columns of a row issues the rounds of its slowest
+    lane, and its slow test in every round some lane needs it. These are
+    modelled from the trace, not counted on the old kernel."""
+    rounds = (trace & 0xFF).reshape(-1, 32)
+    slow = (trace >> 8).reshape(-1, 32)
+    slow_slots = slow_tests = 0
+    for b in range(_BTRS_ROUNDS):  # one bit plane at a time
+        bit = (slow >> b) & 1
+        slow_slots += 32 * bit.amax(1).sum().item()
+        slow_tests += bit.sum().item()
+    return dict(lane_slots=32 * rounds.amax(1).sum().item(),
+                lane_rounds=rounds.sum().item(),
+                slow_slots=slow_slots, slow_tests=slow_tests)
+
+
+def draw_stats(kind: str, seed: int, n: float = 0.0, p: float = 0.0,
+               a: float = 0.0, device="cuda", tiles: int = 1):
+    """K5's stats build on the card: the draws ((tiles, ROWS, 128)), the
+    launch's counters (:data:`COUNTERS`: lane-round slots the warps issued,
+    lane-rounds that drew, slow-test slots, slow tests, clock64() cycles
+    summed over warps) and the same counts for one thread per element
+    (:func:`layout_counts`)."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("K5's counters come from a CUDA device")
+    shape = (tiles, ROWS, cs._LANES)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    trace = torch.zeros(shape, dtype=torch.int32, device=device)
+    counters = torch.zeros(len(COUNTERS), dtype=torch.int64, device=device)
+    rc = _launch(_library(stats=True), out, kind, seed, n, p, a, tiles,
+                 torch.cuda.current_stream(device).cuda_stream, trace,
+                 counters)
+    cs._raise_on(rc, "prng_draws_stats")
+    return (out, dict(zip(COUNTERS, counters.tolist())),
+            layout_counts(trace))
+
+
+def draw_uniform(seed: int, device="cuda", tiles: int = 1):
     return draw_kernel("uniform", seed, device=device, tiles=tiles)
 
 
-def draw_binom(seed: int, n: float, p: float, btrs_mode=True, device="cpu",
+def draw_binom(seed: int, n: float, p: float, btrs_mode=True, device="cuda",
                tiles: int = 1):
     return draw_kernel(_form(btrs_mode), seed, n=n, p=p, device=device,
                        tiles=tiles)
 
 
-def draw_gamma(seed: int, a: float, device="cpu", tiles: int = 1):
+def draw_gamma(seed: int, a: float, device="cuda", tiles: int = 1):
     """The early-exit gamma (the conjugate draw's form)."""
     return draw_kernel("gamma", seed, a=a, device=device, tiles=tiles)
 
@@ -278,17 +352,61 @@ def run_battery(device="cuda", out=print) -> Tuple[List[str], List[str]]:
     return failures, list(NOT_RUN)
 
 
-def main() -> int:
+def stats_report(tiles: int = TIMING_TILES, device="cuda") -> dict:
+    """Each timed sampler's counters over ``tiles`` tiles, the kernel's and
+    one thread per element's, with the ratios a design is read by: slots a
+    draw, the share of lane slots that drew, the share of slow-test slots
+    whose lane needed the test, and the kernel's cycles a warp round and a
+    slow-test batch. {kind: {layout: counts}}."""
+    report = {}
+    for kind, n, p, a in TIMED:
+        out, new, old = draw_stats(kind, 97, n, p, a, device, tiles)
+        draws = out.numel()
+        del out
+        for c in (new, old):
+            c["slots_a_draw"] = c["lane_slots"] / draws
+            c["rounds_a_draw"] = c["lane_rounds"] / draws
+            c["lane_use"] = c["lane_rounds"] / c["lane_slots"]
+            c["slow_use"] = (c["slow_tests"] / c["slow_slots"]
+                             if c["slow_slots"] else None)
+        if new["warp_cycles"]:
+            # a warp round (refill and one round) and a batch of queued
+            # slow tests in cycles, and the warps' share of their time in
+            # each
+            new["cycles_a_round"] = (32 * new["round_cycles"]
+                                     / new["lane_slots"])
+            new["cycles_a_slow_batch"] = (32 * new["drain_cycles"]
+                                          / new["slow_slots"]
+                                          if new["slow_slots"] else None)
+            for part in ("round", "drain"):
+                new[f"{part}_share"] = (new[f"{part}_cycles"]
+                                        / new["warp_cycles"])
+        report[kind] = {"kernel": new, "one_thread_per_element": old}
+    return report
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stats", action="store_true",
+                    help="print each timed sampler's counters (a "
+                         f"-D{_STATS} build) beside those of one thread "
+                         "per element")
+    ap.add_argument("--time-only", action="store_true",
+                    help="skip the battery")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("device_prng: no CUDA device", file=sys.stderr)
         return 1
     print(f"device: {torch.cuda.get_device_name(0)}; RNG path: counter "
           f"hash in csrc/prng.cu")
-    failures, _ = run_battery("cuda")
-    if failures:
-        print(f"FAILED: {failures}")
-        return 1
-    print("device PRNG GOF battery: ALL PASS")
+    if not args.time_only:
+        failures, _ = run_battery("cuda")
+        if failures:
+            print(f"FAILED: {failures}")
+            return 1
+        print("device PRNG GOF battery: ALL PASS")
     from basicrta_torch.scripts import roofline as rf
     ceiling = rf.transcendental_ceiling()
     for kind, r in time_draws().items():
@@ -300,6 +418,9 @@ def main() -> int:
               f"transcendentals a draw at one round, ceiling {ceiling:.4g} "
               f"/s) = {100 * bound_ms / r['ms']:.1f}% of the bound's rate; "
               f"{r['library']} {r['library_ms']:.4f} ms")
+    if args.stats:
+        for kind, layouts in stats_report().items():
+            print(f"[stats {kind}] {json.dumps(layouts)}")
     return 0
 
 

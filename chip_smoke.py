@@ -40,8 +40,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    identical; tile t of a many-tile launch bitwise a one-tile launch at
    its seed), its time over 4,096 tiles in one launch beside the one-tile
    (launch) time and ``torch.rand`` / ``torch.binomial`` /
-   ``torch._standard_gamma`` at the same size, then the goodness-of-fit
-   battery on the kernel's draws (one launch a sample).
+   ``torch._standard_gamma`` at the same size, the last tile of each timed
+   launch against the plain version, the
+   counters of K5's stats build for each timed sampler beside those of one
+   thread per element, then the goodness-of-fit battery on the kernel's
+   draws (one launch a sample).
 6. the tree multinomial (K4) in its three kernel forms against the plain
    tree: K1's and K2's on phase 2's pow2 buckets, K3's on its packed
    buckets, with K1-K3's pass rules and bitwise resume; exact totals and
@@ -605,14 +608,22 @@ def prng_checks():
     for kind, r in times.items():
         print(f"phase 5 K5 time {kind}: {json.dumps(r)}", flush=True)
     row = times["binom_h4"]
-    # the last tile of the timed launch against the plain version
-    big = dp.draw_kernel("binom_h4", 97, row["n"], row["p"], device=dev,
-                         tiles=row["tiles"])
+    # the last tile of each timed launch against the plain version
     last = 97 + (row["tiles"] - 1) * dp.SEED_STRIDE
-    y = dp.draw_plain("binom_h4", last, row["n"], row["p"], device=dev)
-    same = torch.isclose(big[-1], y, rtol=1e-4, atol=0).float().mean().item()
-    require(same >= 0.999, f"K5 tile {row['tiles'] - 1} agrees in {same:.4f}")
-    del big
+    for kind, n, p, a in dp.TIMED:
+        big = dp.draw_kernel(kind, 97, n, p, a, device=dev,
+                             tiles=row["tiles"])
+        y = dp.draw_plain(kind, last, n, p, a, device=dev)
+        same = (torch.equal(big[-1], y) if kind == "uniform" else
+                torch.isclose(big[-1], y, rtol=1e-4,
+                              atol=0).float().mean().item() >= 0.999)
+        require(same, f"K5 {kind}: tile {row['tiles'] - 1} of the timed "
+                "launch differs from the plain version")
+        del big
+    # the counters of a stats build: the kernel's and one thread per
+    # element's (K5 before its redesign), counted from the same draws
+    for kind, layouts in dp.stats_report(row["tiles"], dev).items():
+        print(f"phase 5 K5 stats {kind}: {json.dumps(layouts)}", flush=True)
     plain_ms = cuda_ms(lambda: dp.draw_plain(
         "binom_h4", 97, row["n"], row["p"], device=dev, tiles=row["tiles"]),
         1)
@@ -1138,9 +1149,12 @@ def main():
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.time()
     sources = ("sweep.cu", "prng.cu", "ceiling.cu")
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
+    with ThreadPoolExecutor(len(sources) + 2) as pool:
         builds = [pool.submit(cs.build_library, True, src)
                   for src in sources]
+        # K5's counter build (phase 5)
+        builds.append(pool.submit(cs.build_library, True, "prng.cu",
+                                  ("BASICRTA_PRNG_STATS",)))
         builds.append(pool.submit(native.build_library))
         for b in builds:
             b.result()

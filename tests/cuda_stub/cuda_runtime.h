@@ -9,7 +9,10 @@
 
 #pragma once
 
+#include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -28,11 +31,46 @@
 struct emu_dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local emu_dim3 threadIdx, blockIdx, blockDim;
+inline thread_local emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
+
+struct float4 {
+  float x, y, z, w;
+};
 
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9
+};
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// A host "device" of two SMs that hold two blocks each: launches sized to
+// the card's residency get a small grid of several blocks.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <typename Kernel>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, Kernel,
+                                                          int, size_t) {
+  *n = 2;
+  return cudaSuccess;
+}
+
+inline unsigned long long atomicAdd(unsigned long long* at,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*at).fetch_add(v);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
 
 inline int __float_as_int(float x) {
   int i;
@@ -88,6 +126,26 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   return __int_as_float(int(emu::exchange(
       uint32_t(__float_as_int(v)), int(threadIdx.x & 31) ^ mask)));
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  return __int_as_float(int(emu::exchange(uint32_t(__float_as_int(v)),
+                                          src & 31)));
+}
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const int tid = threadIdx.x, base = tid - (tid & 31);
+  std::barrier<>& bar = *emu::block->warps[tid / 32];
+  emu::block->lanes[tid] = pred ? 1u : 0u;
+  bar.arrive_and_wait();
+  const int n = std::min(32, int(emu::block->lanes.size()) - base);
+  unsigned mask = 0;
+  for (int i = 0; i < n; ++i) {
+    mask |= (emu::block->lanes[base + i] != 0u ? 1u : 0u) << i;
+  }
+  bar.arrive_and_wait();
+  return mask;
+}
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
+  emu::block->warps[threadIdx.x / 32]->arrive_and_wait();
+}
 inline bool __any_sync(unsigned, bool pred) {
   bool any = false;
   for (int src = 0; src < 32; ++src) {
@@ -114,6 +172,7 @@ int emulate_launch(void (*kernel)(Params...), int blocks, int threads,
         threadIdx.x = unsigned(t);
         blockIdx.x = unsigned(b);
         blockDim.x = unsigned(threads);
+        gridDim.x = unsigned(blocks);
         kernel(args...);
       });
     }

@@ -431,6 +431,18 @@ def test_prng_many_tile_launch(dev, kind, n, p, a):
                                 out=out)
 
 
+def test_prng_stats_build(dev):
+    """K5's counter build draws the same bits as the kernel, and its
+    counters agree with its per-element trace."""
+    for kind, n, p, a in device_prng.TIMED:
+        out, got, old = device_prng.draw_stats(kind, 97, n, p, a, dev, 3)
+        assert torch.equal(out, device_prng.draw_kernel(kind, 97, n, p, a,
+                                                        dev, 3))
+        assert got["lane_rounds"] == old["lane_rounds"] >= out.numel()
+        assert got["slow_tests"] == old["slow_tests"]
+        assert got["lane_slots"] <= old["lane_slots"]
+
+
 def _contact_system(seed=3, F=6, R1=20, P1=5, R2=30, P2=4, spread=40.0):
     rng = np.random.default_rng(seed)
     c1 = rng.uniform(0, spread, (F, R1, 3))

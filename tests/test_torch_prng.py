@@ -28,7 +28,7 @@ def jprng():
 def test_uniform_bits_identical(jprng):
     for seed in (97, -5, 2 ** 31 - 1):
         ref = np.asarray(jprng.draw_uniform(jnp.int32(seed), interpret=True))
-        got = dp.draw_uniform(seed).numpy()
+        got = dp.draw_uniform(seed, device="cpu").numpy()
         np.testing.assert_array_equal(got, ref)
 
 
@@ -38,7 +38,8 @@ def test_uniform_bits_identical(jprng):
 def test_binomials_match(jprng, n, p, mode):
     ref = np.asarray(jprng.draw_binom(jnp.int32(128), n=n, p=p,
                                       interpret=True, btrs_mode=mode))
-    got = dp.draw_binom(128, n, p, btrs_mode=mode).numpy()
+    got = dp.draw_binom(128, n, p, btrs_mode=mode, device="cpu")
+    got = got.numpy()
     # a 1-ulp difference in an accept test may move a rare draw
     assert (got == ref).mean() >= 0.999
     assert np.abs(got.mean() - ref.mean()) < 0.01 * n * p
@@ -48,7 +49,7 @@ def test_binomials_match(jprng, n, p, mode):
 def test_gammas_match(jprng, a):
     ref = np.asarray(jprng.draw_gamma(jnp.int32(11), a=a, interpret=True,
                                       early_exit=True))
-    got = dp.draw_gamma(11, a).numpy()
+    got = dp.draw_gamma(11, a, device="cpu").numpy()
     # XLA's fused CPU code rounds Acklam's inverse-normal polynomial
     # differently from torch's op-by-op arithmetic (measured up to 1.3e-3
     # relative, in 1-17% of draws by shape; a < 1 also amplifies through
@@ -107,8 +108,9 @@ def test_many_tile_chunks_and_the_batterys_sample(monkeypatch):
                                                 tiles=5).numpy())
     # collect(): the seeds 97, 128, ... of the reference's battery, in order
     got = dp.collect(dp.draw_uniform, 3, device="cpu")
-    want = np.concatenate([dp.draw_uniform(97 + 31 * s).numpy().ravel()
-                           for s in range(3)])
+    want = np.concatenate([
+        dp.draw_uniform(97 + 31 * s, device="cpu").numpy().ravel()
+        for s in range(3)])
     np.testing.assert_array_equal(got, want)
 
 
@@ -119,3 +121,22 @@ def test_timing_needs_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         dp.time_draws("cpu")
     assert dp.TIMING_TILES * dp.ROWS * 128 * 4 == 512 * 2 ** 20
+
+
+@pytest.mark.parametrize("draw", [
+    lambda: dp.draw_uniform(97), lambda: dp.draw_binom(97, 5000, 0.47),
+    lambda: dp.draw_binom(97, 50, 0.3, btrs_mode="btrd_nat_h4"),
+    lambda: dp.draw_gamma(97, 3.7), lambda: dp.draw_kernel("gamma", 1),
+    lambda: dp.draw_stats("binom_h4", 1, 5000, 0.47)])
+def test_entry_points_default_to_the_card(draw, monkeypatch):
+    """With no device named the draws launch on the card; without one they
+    raise, naming CUDA, before building anything and without a fallback
+    to the plain version."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.setattr(dp, "_library", None)    # a build would fail here
+    calls = dp.draw_plain.calls
+    with pytest.raises(RuntimeError, match="CUDA"):
+        draw()
+    assert dp.draw_plain.calls == calls
