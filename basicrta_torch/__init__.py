@@ -6,7 +6,10 @@ frames are extracted by torch ops and merged into residence events
 (``contacts``), residence times are bucketed into lanes (``sampler.batch``), every lane runs its collapsed
 sweeps inside one hand-written CUDA kernel (``sampler.cuda_sweep``,
 ``csrc/sweep.cu``), and the thinned samples are clustered and reduced to
-τ with a credible interval (``postprocess``, ``protein.driver``).
+τ with a credible interval (``postprocess``, ``protein.driver``). Each
+event's membership probabilities map back onto its frames as reduced
+trajectories and weighted densities (``kinetics``), and the protein's
+outputs are tables, figures (``plots``) and a b-factor-coloured PDB.
 
 Module and function names follow ``basicrta_tpu`` so each piece has an
 obvious counterpart in the JAX reference. The package imports ``torch``

@@ -1,19 +1,22 @@
 """Command-line interface of the port.
 
-Four subcommands of ``basicrta_tpu.cli``, from a trajectory file to tau::
+The subcommands of ``basicrta_tpu.cli``, from a trajectory file to tau and
+on to what users look at::
 
     basicrta-torch contacts --top t.gro --traj t.xtc --sel1 protein \
         --sel2 "resname CHOL" --cutoff 7.0 [--device cuda|cpu]
     basicrta-torch gibbs --contacts contacts_7.0.npz [--resid 313] \
-        [--engine cuda|torch]
+        [--engine cuda|torch] [--mode batched|sequential]
     basicrta-torch status --cutoff 7.0
-    basicrta-torch cluster --cutoff 7.0 [--engine cuda|torch]
+    basicrta-torch cluster --cutoff 7.0 [--engine cuda|torch] \
+        [--prot b2ar] [--structure s.pdb] [--all-clusters] [--diagnostics]
+    basicrta-torch kinetics --gibbs basicrta-7.0/W313/gibbs_110000.npz \
+        --contacts contacts_7.0.npz [--top_n N] [--wdensity] \
+        [--device cuda|cpu]
 
 All run on the card unless ``--device cpu`` / ``--engine torch`` asks for
-the CPU.
-
-``cluster`` writes the tau table (``tausout.npy``); figures wait for the
-port of the plotting module.
+the CPU. ``cluster`` writes every data file with or without matplotlib;
+without it, each figure it did not draw gets one line on stderr.
 """
 
 from __future__ import annotations
@@ -102,8 +105,43 @@ def _cmd_gibbs(args):
               end="", file=sys.stderr)
 
     driver = ParallelGibbs(args.contacts, cfg=cfg)
-    results = driver.run(run_resids=args.resid, engine=args.engine,
-                         progress_cb=progress)
+    run_resids = args.resid
+    rerun: set = set()
+    if args.rerun_missing:
+        # failure-detection sweep: only residues without results
+        from basicrta_torch.protein.driver import ProcessProtein
+        missing = ProcessProtein(cfg=cfg,
+                                 cutoff=driver.cutoff).missing_residues()
+        rerun |= set(missing)
+        print(f"{len(missing)} missing residues"
+              + (f": {' '.join(missing)}" if missing else ""),
+              file=sys.stderr)
+    if args.rerun_flagged:
+        # convergence-recovery sweep over what cluster --diagnostics
+        # flagged; combine with --nchains/--niter/--seed, else the
+        # deterministic sampler reproduces the same chains
+        flagged = _flagged_residues(args.rerun_flagged)
+        rerun |= set(flagged)
+        print(f"{len(flagged)} flagged residues"
+              + (f": {' '.join(flagged)}" if flagged else ""),
+              file=sys.stderr)
+    if args.rerun_missing or args.rerun_flagged:
+        if not rerun:
+            print("nothing to rerun", file=sys.stderr)
+            return
+        labels = sorted(rerun, key=lambda s: int(s[1:]))
+        run_resids = [int(lab[1:]) for lab in labels]
+        print(f"rerunning {len(labels)} residues: {' '.join(labels)}",
+              file=sys.stderr)
+
+    def run():
+        return driver.run(run_resids=run_resids, mode=args.mode,
+                          engine=args.engine, progress_cb=progress)
+
+    if args.profile:
+        results = _profiled(run, args.profile)
+    else:
+        results = run()
     print(file=sys.stderr)
     for label, g in results.items():
         lo, tau, hi = g.tau
@@ -120,11 +158,65 @@ def _cmd_gibbs(args):
         print(line)
 
 
+def _flagged_residues(path):
+    """Labels a ``cluster --diagnostics`` archive (of either package)
+    flagged; an archive without the 'flagged' key is screened again from
+    its per-residue stats (NaN flags)."""
+    import numpy as np
+    try:
+        with np.load(path) as z:
+            if "flagged" in z.files:
+                return [str(lab) for lab in z["flagged"]]
+            return [str(lab) for lab, r, e in zip(
+                z["labels"], z["max_rhat"], z["min_ess"])
+                if not (r <= float(z["rhat_warn"])
+                        and e >= float(z["ess_warn"]))]
+    except (KeyError, AttributeError, IndexError) as e:
+        raise SystemExit(
+            f"{path} is not a diagnostics archive: expected a "
+            f"diagnostics.npz from `cluster --diagnostics` with keys "
+            f"flagged (or labels/max_rhat/min_ess/rhat_warn/ess_warn); "
+            f"got {type(e).__name__}: {e}")
+
+
+def _profiled(fn, outdir):
+    """Run ``fn`` under torch.profiler (host and, with a card, device
+    activities) and write its Chrome trace to ``outdir/gibbs_trace.json``
+    (chrome://tracing, Perfetto)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out = fn()
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "gibbs_trace.json")
+    prof.export_chrome_trace(path)
+    print(f"wrote {path}", file=sys.stderr)
+    return out
+
+
+def _draw(fn, what):
+    """Draw one figure; without matplotlib say so on stderr instead."""
+    try:
+        fn()
+    except ModuleNotFoundError as e:
+        if e.name is None or not e.name.startswith("matplotlib"):
+            raise
+        print(f"{what} not drawn: matplotlib is not installed",
+              file=sys.stderr)
+        return
+    print(f"wrote {what}")
+
+
 def _cmd_cluster(args):
     from basicrta_torch.config import GibbsConfig
     from basicrta_torch.protein.driver import ProcessProtein
 
-    pp = ProcessProtein(cfg=GibbsConfig(niter=args.niter),
+    pp = ProcessProtein(cfg=GibbsConfig(niter=args.niter), prot=args.prot,
                         cutoff=args.cutoff,
                         device="cpu" if args.engine == "torch" else "cuda")
     if args.reprocess:
@@ -134,7 +226,23 @@ def _cmd_cluster(args):
               f"niter={args.niter}; run the gibbs subcommand first",
               file=sys.stderr)
         sys.exit(1)
-    print(f"wrote {pp.write_data()}")
+    # every data file first: the figures need matplotlib, the data do not
+    out = pp.write_data(all_clusters=args.all_clusters)
+    print(f"wrote {out}")
+    if args.all_clusters:
+        print(f"wrote {out[:-4]}_all.npy")
+    if args.diagnostics:
+        path, flagged = pp.write_diagnostics()
+        print(f"wrote {path}")
+        if flagged:
+            print(f"convergence warning ({len(flagged)} residues with "
+                  "split-R-hat > 1.05 or bulk ESS < 100; rerun with more "
+                  "chains/sweeps): " + " ".join(flagged), file=sys.stderr)
+    if args.structure:
+        print(f"wrote {pp.b_color_structure(args.structure)}")
+    _draw(pp.plot_protein, "figs/t_slow.png")
+    if args.all_clusters:
+        _draw(pp.plot_taus_all, "figs/tau_clusters.png")
 
 
 def _cmd_status(args):
@@ -152,6 +260,28 @@ def _cmd_status(args):
           f"skipped: {len(skipped)}")
     if missing:
         print("missing:", " ".join(sorted(missing)))
+
+
+def _cmd_kinetics(args):
+    from basicrta_torch.kinetics.mapper import MapKinetics
+    from basicrta_torch.sampler.gibbs import Gibbs
+
+    g = Gibbs.load(args.gibbs)
+    mk = MapKinetics(g, args.contacts, traj_format=args.traj_format,
+                     device=args.device)
+    for w in mk.create_traj(top_n=args.top_n):
+        print(f"wrote {w}")
+    if args.comp_trajs:
+        for w in mk.write_component_trajs(step=args.step):
+            print(f"wrote {w}")
+    if args.wdensity:
+        for w in mk.weighted_densities(step=args.step, top_n=args.top_n,
+                                       filterP=args.filterP,
+                                       xdim=args.grid_dim,
+                                       ydim=args.grid_dim,
+                                       zdim=args.grid_dim,
+                                       delta=args.grid_delta):
+            print(f"wrote {w}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -213,6 +343,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sweep engine: the fused CUDA kernels on the card "
                         "(default), or their plain PyTorch versions on the "
                         "CPU")
+    g.add_argument("--mode", choices=["batched", "sequential"],
+                   default="batched",
+                   help="every residue as lanes of one run (default), or "
+                        "one residue after another")
+    g.add_argument("--rerun-missing", action="store_true",
+                   help="run only residues without results (failure-"
+                        "detection sweep)")
+    g.add_argument("--rerun-flagged", type=str, default=None,
+                   metavar="DIAGNOSTICS_NPZ",
+                   help="rerun only the residues a cluster --diagnostics "
+                        "pass flagged as unconverged; combine with "
+                        "--nchains/--niter/--seed to actually change the "
+                        "chains")
+    g.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/gibbs_trace.json")
     g.set_defaults(fn=_cmd_gibbs)
 
     st = sub.add_parser("status", help="report per-residue result status")
@@ -223,12 +369,52 @@ def build_parser() -> argparse.ArgumentParser:
     cl = sub.add_parser("cluster", help="aggregate tau across residues")
     cl.add_argument("--cutoff", type=float, required=True)
     cl.add_argument("--niter", type=int, default=110_000)
+    cl.add_argument("--prot", type=str, default=None,
+                    help="protein of the TM-helix bars under the tau "
+                         "figure (an entry of data/tm_dict.json)")
+    cl.add_argument("--structure", type=str, default=None,
+                    help="write tau_bcolored.pdb: this structure with tau "
+                         "in the b-factors")
     cl.add_argument("--reprocess", action="store_true")
     cl.add_argument("--engine", choices=["cuda", "torch"], default="cuda",
                     help="where --reprocess (or a residue without a saved "
                          "tau) post-processes: the card (default) or the "
                          "CPU")
+    cl.add_argument("--all-clusters", action="store_true",
+                    help="also write tau + CI for every non-noise cluster "
+                         "(tausout_all.npy) and the stacked tau figure")
+    cl.add_argument("--diagnostics", action="store_true",
+                    help="write per-residue split-R-hat / bulk-ESS "
+                         "convergence table (diagnostics.npz) and flag "
+                         "unconverged residues")
     cl.set_defaults(fn=_cmd_cluster)
+
+    k = sub.add_parser("kinetics", help="write component trajectories and "
+                       "weighted densities")
+    k.add_argument("--gibbs", required=True)
+    k.add_argument("--contacts", required=True)
+    k.add_argument("--top_n", type=int, default=None)
+    k.add_argument("--step", type=int, default=1)
+    k.add_argument("--wdensity", action="store_true")
+    k.add_argument("--filterP", type=float, default=0.0,
+                   help="zero membership weights below this before "
+                        "density accumulation (reference kinetics.py:127)")
+    k.add_argument("--comp-trajs", action="store_true",
+                   help="also write per-component assigned-event "
+                        "trajectories (comp{k}_traj.xtc)")
+    k.add_argument("--traj-format", choices=("xtc", "trr", "dcd", "nc"),
+                   default="xtc", dest="traj_format",
+                   help="format of the reduced trajectories (nc = Amber "
+                        "NetCDF)")
+    k.add_argument("--grid-dim", type=float, default=40.0, dest="grid_dim",
+                   help="density grid edge length [A] centered on the "
+                        "residue (reference kinetics.py:167)")
+    k.add_argument("--grid-delta", type=float, default=1.0,
+                   dest="grid_delta", help="density grid resolution [A]")
+    k.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the densities accumulate: the card "
+                        "(default; raises without one) or the CPU")
+    k.set_defaults(fn=_cmd_kinetics)
     return p
 
 

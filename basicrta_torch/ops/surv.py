@@ -2,10 +2,11 @@
 
 The port's own copies of the JAX package's ``ops.surv`` helpers that the
 port calls: the timestep of a set of residence times, the empirical
-credible interval, error-bar offsets, the rounding precision of a
-timestep, and the synthetic hyperexponential data of the tests and the
-smoke run (reference util.py:78-99, 508-513, 596-608 and
-gibbs.py:146-153).
+survival function and its bins, the empirical credible interval, error-bar
+offsets, the count of distinct rates, the rounding precision of a
+timestep, event frame ranges, and the synthetic hyperexponential data of
+the tests and the smoke run (reference util.py:78-120, 508-520, 596-620,
+653-660 and gibbs.py:146-153).
 """
 
 from __future__ import annotations
@@ -22,6 +23,27 @@ def infer_timestep(times: np.ndarray) -> float:
     if nonzero.size:
         return float(nonzero.min())
     return float(ts_sorted.min())
+
+
+def survival_bins(x: np.ndarray, ts: float) -> np.ndarray:
+    """Histogram bin edges ``ts, 2*ts, ..., (floor(max/ts)+2)*ts``, so
+    every discrete residence time falls in its own bin."""
+    x = np.asarray(x)
+    return np.arange(1, int(x.max() // ts) + 3) * ts
+
+
+def survival_function(x: np.ndarray, ts: float):
+    """Empirical survival function ``(t, s)`` of residence times on the
+    timestep grid, with a leading (0, 1) point and empty bins dropped."""
+    x = np.asarray(x, dtype=np.float64)
+    counts, edges = np.histogram(x, bins=survival_bins(x, ts))
+    nonzero = counts != 0
+    t = edges[:-1][nonzero]
+    y = np.cumsum(counts[nonzero]).astype(np.float64)
+    t = np.insert(t, 0, 0.0)
+    y = np.insert(y, 0, 0.0)
+    y /= y[-1]
+    return t, 1.0 - y
 
 
 def empirical_ci(data: np.ndarray, percentage: float = 95.0):
@@ -56,6 +78,18 @@ def decimals_of(ts: float) -> int:
     return -Decimal(str(float(ts))).normalize().as_tuple().exponent
 
 
+def start_stop_frames(start_times: np.ndarray, durations: np.ndarray,
+                      ts: float):
+    """Inclusive frame ranges ``(first, last)`` of events: the quotients
+    of times rounded to the timestep's decimals by ``ts``, rounded to the
+    nearest integer (0.3 / 0.1 is 2.999..., which truncation would make
+    2)."""
+    dec = decimals_of(ts)
+    nframes = np.rint(np.round(durations, dec) / ts).astype(np.int64)
+    first = np.rint(np.round(start_times, dec) / ts).astype(np.int64)
+    return first, first + nframes - 1
+
+
 def simulate_hyperexp(n: int, weights, rates, rng=None,
                       sort: bool = True) -> np.ndarray:
     """``n`` draws from a hyperexponential mixture: a component by the
@@ -68,6 +102,18 @@ def simulate_hyperexp(n: int, weights, rates, rng=None,
     if sort:
         x.sort()
     return x
+
+
+def unique_rate_count(ncomp: int, mcrates: np.ndarray) -> int:
+    """Components with statistically distinct rates: over the last 10% of
+    samples, a component whose mean rate lies within one standard
+    deviation of another's is degenerate."""
+    tail = mcrates[len(mcrates) * 9 // 10:]
+    means, stds = tail.mean(axis=0), tail.std(axis=0)
+    lb, ub = means - stds, means + stds
+    overlap = (means[:, None] < ub[None, :]) & (means[:, None] > lb[None, :])
+    sums = overlap.sum(axis=0)
+    return int(ncomp - np.count_nonzero(sums != 1))
 
 
 def discretize_times(times: np.ndarray, ts: float) -> np.ndarray:

@@ -4,7 +4,8 @@ Port of ``basicrta_tpu.postprocess.tau`` (host numpy, reference
 gibbs.py:667-715): per-cluster point estimates are the left edge of the
 tallest of 20 log-spaced bins; tau of the slowest non-noise process is the
 midpoint of the tallest of 15 linear bins of its 1/rate samples, with an
-empirical 95% credible interval.
+empirical 95% credible interval; ``estimate_tau_all`` gives the same
+estimate for every non-noise cluster.
 """
 
 from __future__ import annotations
@@ -68,3 +69,29 @@ def estimate_tau(result: ClusterResult, noise_cutoff: float,
     imax = int(np.argmax(hist))
     val = 0.5 * (edges[imax] + edges[imax + 1])
     return float(lo), float(val), float(hi)
+
+
+def estimate_tau_all(result: ClusterResult, noise_cutoff: float,
+                     params: Optional[np.ndarray] = None,
+                     nbins: int = 15) -> np.ndarray:
+    """(C, 4) rows ``[cluster, ci_lo, tau_max, ci_hi]``, one per present,
+    non-noise cluster with a finite rate estimate, slowest process first
+    (ascending rate). Raises AllNoiseError when no cluster survives."""
+    if params is None:
+        params, _ = estimate_params(result)
+    imaxs = result.pindicator_values.max(axis=0)
+    all_clusters = np.arange(result.lmode)
+    present = np.isin(all_clusters, np.unique(result.labels))
+    candidates = all_clusters[present & (imaxs >= noise_cutoff)]
+    candidates = candidates[np.isfinite(params[candidates, 1])]
+    if candidates.size == 0:
+        raise AllNoiseError("all clusters classified as noise")
+    rows = []
+    for c in candidates[np.argsort(params[candidates, 1])]:
+        taus = 1.0 / result.data[result.labels == c, 1]
+        lo, hi = empirical_ci(taus)
+        hist, edges = np.histogram(taus, bins=nbins)
+        imax = int(np.argmax(hist))
+        rows.append([float(c), float(lo),
+                     0.5 * (edges[imax] + edges[imax + 1]), float(hi)])
+    return np.asarray(rows, np.float64)

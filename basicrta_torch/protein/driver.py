@@ -2,9 +2,11 @@
 
 Port of ``basicrta_tpu.protein.driver`` (reference gibbs.py:20-88 and
 cluster.py:15-192): ``ParallelGibbs`` runs every residue's chains as lanes
-of the fused sweep kernels, ``finish_batch`` post-processes all residues
-in bucketed batches, and ``ProcessProtein`` collects the per-residue
-results into the protein's tau table.
+of the fused sweep kernels (or one residue after another), ``finish_batch``
+post-processes all residues in bucketed batches, and ``ProcessProtein``
+collects the per-residue results into the protein's tau tables (slowest
+process and every cluster), the convergence table, the tau-vs-residue
+figures and the b-factor-coloured structure.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from basicrta_torch.ops.surv import ci_bars
 from basicrta_torch.postprocess.batched import process_residues_batched
 from basicrta_torch.postprocess.tau import AllNoiseError, estimate_params
 from basicrta_torch.sampler.batch import resolve_engine, run_residues
-from basicrta_torch.sampler.gibbs import Gibbs
+from basicrta_torch.sampler.gibbs import Gibbs, run_residue
 
 
 def finish_batch(gibbs_by_label: Dict[str, Gibbs], chain=0,
@@ -121,11 +123,20 @@ class ParallelGibbs:
         self.cfg = cfg
         self.root = root
 
-    def run(self, run_resids=None, engine: Optional[str] = None,
-            device=None, progress_cb=None) -> Dict[str, Gibbs]:
-        """Sample all residues (or ``run_resids``) as lanes of the fused
-        kernels on the engine's layout (see ``run_residues``), then
-        post-process them in bucketed batches on the same device."""
+    def run(self, run_resids=None, mode: str = "batched",
+            engine: Optional[str] = None, device=None,
+            progress_cb=None) -> Dict[str, Gibbs]:
+        """Sample all residues (or ``run_resids``) and post-process them.
+
+        ``mode='batched'`` runs every residue as lanes of the fused kernels
+        on the engine's layout (see ``run_residues``), then post-processes
+        them in bucketed batches on the same device; ``mode='sequential'``
+        runs one residue at a time through :func:`run_residue` (lower peak
+        memory; each residue's result is that of ``Gibbs(...).run()``
+        alone)."""
+        if mode not in ("batched", "sequential"):
+            raise ValueError(f"unknown mode {mode!r}; use 'batched' or "
+                             "'sequential'")
         engine, device = resolve_engine(engine, device)
         all_resids = np.unique(self.events.sel1_resids)
         if run_resids is None:
@@ -145,6 +156,10 @@ class ParallelGibbs:
                 os.makedirs(d, exist_ok=True)
                 open(os.path.join(d, ".dataset_too_small"), "w").close()
                 del times[lab]
+        if mode == "sequential":
+            return {lab: run_residue(x, lab, self.cutoff, self.cfg,
+                                     self.root, engine, device)
+                    for lab, x in times.items()}
         ckpt_dir = os.path.join(self.root, f"basicrta-{self.cutoff}",
                                 ".checkpoints")
         samples = run_residues(times, self.cfg, n_chains=self.cfg.n_chains,
@@ -164,11 +179,14 @@ class ParallelGibbs:
 class ProcessProtein:
     """Collect per-residue results and aggregate tau across the protein
     (reference cluster.py:15-192); any post-processing runs on ``device``
-    (default the card)."""
+    (default the card). ``prot`` names the protein's entry in the TM-helix
+    table of the tau-vs-residue figure."""
 
-    def __init__(self, cfg: GibbsConfig = GibbsConfig(), cutoff: float = 7.0,
+    def __init__(self, cfg: GibbsConfig = GibbsConfig(),
+                 prot: Optional[str] = None, cutoff: float = 7.0,
                  root: str = ".", device=None):
         self.cfg = cfg
+        self.prot = prot
         self.cutoff = cutoff
         self.root = root
         self.device = device
@@ -237,11 +255,120 @@ class ProcessProtein:
         taus = np.asarray(taus, np.float64).reshape(-1, 3)
         return taus[:, 1], ci_bars(taus)
 
-    def write_data(self, fname: str = "tausout") -> str:
-        """[resid, tau, CI_lo, CI_hi] table as .npy (cluster.py:122-134)."""
+    def _loaded(self):
+        """(label, Gibbs) of every residue whose results load."""
+        if not self.residues:
+            self.collect_results()
+        for label, path in self.residues.items():
+            if path is None:
+                continue
+            try:
+                g = Gibbs.load(path)
+            except (KeyError, ValueError):
+                continue
+            g.root = self.root
+            g.device = self.device
+            yield label, g
+
+    def get_taus_all(self):
+        """{label: (C, 4) rows [cluster, ci_lo, tau, ci_hi]}: tau of every
+        non-noise process of every residue with results."""
+        out = {}
+        for label, g in self._loaded():
+            try:
+                out[label] = g.estimate_tau_all()
+            except (AllNoiseError, KeyError, ValueError):
+                continue
+        return out
+
+    def diagnostics_table(self):
+        """(labels, (R, 2) rows [max_rhat, min_ess]) over every residue
+        with results: split-R-hat / bulk-ESS screening of the whole
+        protein."""
+        labels, rows = [], []
+        for label, g in self._loaded():
+            try:
+                d = g.diagnostics()
+            except (KeyError, ValueError):
+                continue
+            labels.append(label)
+            rows.append([d["max_rhat"], d["min_ess"]])
+        return labels, np.asarray(rows, np.float64).reshape(-1, 2)
+
+    def write_diagnostics(self, fname: str = "diagnostics",
+                          rhat_warn: float = 1.05,
+                          ess_warn: float = 100.0):
+        """Write ``{fname}.npz`` (the JAX package's keys) and return
+        (path, flagged labels): a residue is flagged when its worst
+        split-R-hat exceeds ``rhat_warn`` or its smallest bulk ESS falls
+        below ``ess_warn``; NaN diagnostics flag too."""
+        labels, rows = self.diagnostics_table()
+        flagged = [lab for lab, (r, e) in zip(labels, rows)
+                   if not (r <= rhat_warn and e >= ess_warn)]
+        path = os.path.join(self.root, f"{fname}.npz")
+        np.savez(path, labels=np.asarray(labels),
+                 max_rhat=rows[:, 0], min_ess=rows[:, 1],
+                 rhat_warn=rhat_warn, ess_warn=ess_warn,
+                 flagged=np.asarray(flagged))
+        return path, flagged
+
+    def write_data(self, fname: str = "tausout",
+                   all_clusters: bool = False) -> str:
+        """[resid, tau, CI_lo, CI_hi] table as .npy (cluster.py:122-134);
+        with ``all_clusters`` also ``{fname}_all.npy``, one row [resid,
+        cluster, ci_lo, tau, ci_hi] per non-noise cluster per residue."""
         taus, bars = self.get_taus()
         resids = np.array([int(label[1:]) for label in self.residues])
         data = np.stack((resids, taus, taus - bars[0], taus + bars[1])).T
         out = os.path.join(self.root, f"{fname}.npy")
         np.save(out, data)
+        if all_clusters:
+            rows = [[int(label[1:]), *row]
+                    for label, table in self.get_taus_all().items()
+                    for row in table]
+            np.save(os.path.join(self.root, f"{fname}_all.npy"),
+                    np.asarray(rows, np.float64).reshape(-1, 5))
         return out
+
+    def plot_taus_all(self, basename: Optional[str] = None):
+        """Every residue's non-noise process taus with CIs on a log axis
+        (``figs/tau_clusters``; needs matplotlib)."""
+        from basicrta_torch.plots import plot_tau_stack
+        if basename is None:
+            basename = os.path.join(self.root, "figs", "tau_clusters")
+        return plot_tau_stack(self.get_taus_all(), basename=basename)
+
+    def plot_protein(self, **kwargs):
+        """Tau vs residue (``figs/t_slow``, reference cluster.py:136-155;
+        needs matplotlib)."""
+        from basicrta_torch.plots import plot_protein
+        taus, bars = self.get_taus()
+        residues = np.asarray(list(self.residues.keys()))
+        exclude = np.unique(np.where(bars < 0)[1])
+        taus = np.delete(taus, exclude)
+        bars = np.delete(bars, exclude, axis=1)
+        residues = np.delete(residues, exclude)
+        basename = kwargs.pop("basename",
+                              os.path.join(self.root, "figs", "t_slow"))
+        return plot_protein(residues, taus, bars, self.prot,
+                            basename=basename, **kwargs)
+
+    def b_color_structure(self, structure: str,
+                          out: str = "tau_bcolored.pdb") -> str:
+        """Write tau into b-factors and tau/CI-width into occupancies of
+        the structure's protein atoms (reference cluster.py:157-175)."""
+        from basicrta_torch.io.topology import write_pdb
+        from basicrta_torch.io.universe import read_topology
+        taus, bars = self.get_taus()
+        widths = bars[0] + bars[1]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            errs = np.where(widths > 0, taus / widths, 0.0)
+        top = read_topology(structure)
+        tempfactors, occupancies = {}, {}
+        for label, tau, err in zip(self.residues, taus, errs):
+            resid = int(label[1:])
+            tempfactors[resid] = round(float(tau), 2)
+            occupancies[resid] = round(float(err), 2)
+        return write_pdb(os.path.join(self.root, out), top,
+                         indices=top.select("protein"),
+                         tempfactors=tempfactors, occupancies=occupancies)

@@ -2,8 +2,9 @@
 
 Port of ``basicrta_tpu.sampler.gibbs.Gibbs`` (reference gibbs.py:91-381):
 construct with residence times, ``run()`` the sampler, ``process_gibbs()``
-the posterior, ``estimate_tau()`` the slowest process, ``save()`` and
-``load()`` artifacts. The artifact layout (NPZ arrays + JSON ``_meta``
+the posterior, ``estimate_tau()`` the slowest process (``estimate_tau_all()``
+every non-noise one), ``save()`` and ``load()`` artifacts, and the
+per-residue figures (``basicrta_torch.plots``, which needs matplotlib). The artifact layout (NPZ arrays + JSON ``_meta``
 under ``basicrta-{cutoff}/{residue}/gibbs_{niter}.npz``) is the JAX
 package's, so an artifact written by either package loads in the other.
 """
@@ -19,10 +20,11 @@ import numpy as np
 import torch
 
 from basicrta_torch.config import GibbsConfig
-from basicrta_torch.ops.surv import infer_timestep
+from basicrta_torch.ops.surv import infer_timestep, survival_function
 from basicrta_torch.postprocess.clustering import (ClusterResult,
                                                    process_samples)
-from basicrta_torch.postprocess.tau import estimate_params, estimate_tau
+from basicrta_torch.postprocess.tau import (AllNoiseError, estimate_params,
+                                            estimate_tau, estimate_tau_all)
 from basicrta_torch.sampler.batch import resolve_engine, run_residues
 from basicrta_torch.sampler.kernels import dedup_times
 
@@ -48,11 +50,13 @@ class Gibbs:
         self.ts = infer_timestep(self.times) if times is not None else None
         self.mcweights: Optional[np.ndarray] = None  # (chains, S, K)
         self.mcrates: Optional[np.ndarray] = None
+        self.t = self.s = None          # the empirical survival function
         self.processed: Optional[ClusterResult] = None
         self.parameters = None          # (lmode, 2) point estimates
         self.intervals = None           # (2, lmode, 2) CIs
         self.tau = None                 # (lo, max, hi)
         if self.times is not None:
+            self.t, self.s = survival_function(self.times, self.ts)
             self._values, self._counts = dedup_times(self.times)
 
     def __getitem__(self, item):
@@ -121,6 +125,14 @@ class Gibbs:
                                 self.parameters)
         return list(self.tau)
 
+    def estimate_tau_all(self):
+        """Rows ``[cluster, ci_lo, tau_max, ci_hi]`` for every non-noise
+        cluster, slowest first."""
+        if self.processed is None:
+            self.process_gibbs()
+        return estimate_tau_all(self.processed, self.cfg.noise_cutoff,
+                                self.parameters)
+
     def diagnostics(self) -> dict:
         """Split-R̂ and bulk ESS of the live components over the chains."""
         from basicrta_torch.ops.diagnostics import convergence_report
@@ -128,6 +140,15 @@ class Gibbs:
             self.mcweights, self.mcrates,
             burnin_samples=self.cfg.burnin_samples,
             wcutoff=self.cfg.wcutoff(len(self.times)))
+
+    def pindicator_per_event(self) -> np.ndarray:
+        """(N, lmode) membership probabilities of the unique values
+        broadcast back to the events (events of equal residence time are
+        exchangeable)."""
+        if self.processed is None:
+            self.process_gibbs()
+        pv = self.processed.pindicator_values
+        return pv[np.searchsorted(self._values, self.times)]
 
     def save(self) -> str:
         """Persist raw + processed state as NPZ (previous file -> .bak)."""
@@ -184,3 +205,106 @@ class Gibbs:
             if "tau" in z:
                 g.tau = tuple(z["tau"])
         return g
+
+    # ------------------------------------------------------------------ #
+    def cluster(self, chain=0, method: str = "GaussianMixture", device=None,
+                **kwargs) -> "Gibbs":
+        """Re-run the posterior clustering only (reference
+        gibbs.py:221-273). 'GaussianMixture' is the port's own EM; another
+        ``sklearn.mixture`` class name (e.g. 'BayesianGaussianMixture')
+        labels the samples with scikit-learn. Remaining kwargs override
+        GibbsConfig fields (or, for scikit-learn, the model's)."""
+        if method != "GaussianMixture":
+            return self._cluster_sklearn(chain, method, device, **kwargs)
+        if kwargs:
+            import dataclasses
+            self.cfg = dataclasses.replace(self.cfg, **kwargs)
+        return self.process_gibbs(chain=chain, save=False, device=device)
+
+    def _cluster_sklearn(self, chain, method, device=None, **kwargs):
+        """Label the surviving posterior pairs with an sklearn.mixture
+        model, then vote and sort as :meth:`process_gibbs` does."""
+        from sklearn import mixture
+
+        from basicrta_torch.postprocess.clustering import (
+            _label_matrix, accumulate_cluster_votes, component_counts,
+            gather_cluster_data, select_lmode, sort_labels_by_rate)
+        idx = 0 if chain == "pooled" else chain
+        b = self.cfg.burnin_samples
+        W = np.asarray(self.mcweights[idx])[b:]
+        R = np.asarray(self.mcrates[idx])[b:]
+        wcut = self.cfg.wcutoff(len(self.times))
+        lmode = select_lmode(component_counts(W, wcut))
+        data, inds, train = gather_cluster_data(W, R, wcut, lmode)
+        clu = getattr(mixture, method)(
+            n_components=lmode,
+            **{k: v for k, v in kwargs.items() if k != "n_components"})
+        clu.fit(np.log(train))
+        labels = clu.predict(np.log(data)).astype(np.int32)
+        res = ClusterResult(lmode=lmode, labels=labels, inds=inds,
+                            data=data)
+        votes = accumulate_cluster_votes(
+            self._generator(2, device), W, R, self._values, self._counts,
+            _label_matrix(inds, labels, W.shape), lmode)
+        denom = votes.sum(axis=1, keepdims=True)
+        res.pindicator_values = votes / np.maximum(denom, 1e-30)
+        self.processed = sort_labels_by_rate(res, self.cfg.noise_cutoff)
+        self.parameters, self.intervals = estimate_params(self.processed)
+        return self
+
+    # the per-residue figures (basicrta_torch.plots; matplotlib)
+    def result_plot(self, **kwargs):
+        """Cluster scatter figure (reference gibbs.py:310-319)."""
+        from basicrta_torch.plots import plot_cluster_scatter
+        return plot_cluster_scatter(self, **kwargs)
+
+    def plot_surv(self, **kwargs):
+        """Survival function with the mixture's components
+        (reference gibbs.py:717-778)."""
+        from basicrta_torch.plots import plot_surv
+        return plot_surv(self, **kwargs)
+
+    def plot_gibbs(self, **kwargs):
+        """Thinned traces (reference gibbs.py:640-665)."""
+        from basicrta_torch.plots import plot_gibbs_traces
+        return plot_gibbs_traces(self, **kwargs)
+
+    def plot_hist(self, **kwargs):
+        """Posterior histograms per cluster (reference gibbs.py:427-638)."""
+        from basicrta_torch.plots import plot_hist_results
+        return plot_hist_results(self, **kwargs)
+
+    def plot_tau_hist(self, **kwargs):
+        """Tau histogram of the slowest cluster
+        (reference gibbs.py:383-425)."""
+        from basicrta_torch.plots import plot_tau_hist
+        return plot_tau_hist(self, **kwargs)
+
+    def mixture_and_plot(self, **kwargs):
+        """Train/validate/all clustering figure sets
+        (reference util.py:694-1198)."""
+        from basicrta_torch.plots import mixture_and_plot
+        return mixture_and_plot(self, **kwargs)
+
+    def make_residue_plots(self, comps=None):
+        """Point-estimate fits, posterior histograms and traces
+        (reference util.py:384-400)."""
+        from basicrta_torch.plots import make_residue_plots
+        return make_residue_plots(self, comps)
+
+
+def run_residue(times, residue, cutoff, cfg: GibbsConfig = GibbsConfig(),
+                root: str = ".", engine: Optional[str] = None,
+                device=None) -> Gibbs:
+    """Construct, run, post-process and save one residue (the unit of work
+    the reference fans out per process, util.py:475-485); a residue whose
+    clusters are all noise records tau (0, 0, 0)."""
+    g = Gibbs(times, residue=residue, cutoff=cutoff, cfg=cfg, root=root)
+    g.run(engine=engine, device=device, save=False)
+    g.process_gibbs(save=False)
+    try:
+        g.estimate_tau()
+    except AllNoiseError:
+        g.tau = (0.0, 0.0, 0.0)
+    g.save()
+    return g

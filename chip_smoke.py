@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of basicrta_torch's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only 5,8]
+    python3 chip_smoke.py [--only 5,8,9]
 
 With no arguments every phase runs and the result lines are printed;
-``--only`` runs phase 1 and the named phases that stand alone (5, 8) and
-prints no result.
+``--only`` runs phase 1 and the named phases that stand alone (5, 8, 9;
+9 runs 8a and the flagship residue of phase 4 first) and prints no
+result.
 
 Phases (each raises on failure, so any failure exits non-zero):
 
@@ -68,6 +69,23 @@ Phases (each raises on failure, so any failure exits non-zero):
    kernel's on one batch and the host version's on sampled frames; warm
    frames/s, decode, host prepare and device seconds a frame, and the
    device's busy share by ``torch.profiler`` are printed.
+9. kinetics and weighted densities. 9a: 8a's residue with the most events
+   through the CLI ``kinetics --wdensity --comp-trajs --top_n 100`` (xtc,
+   then dcd): every ``.dx`` must read back, every trajectory must hold
+   its rows' frames, the card's densities must equal the CPU's at rtol
+   1e-5 of the largest value; then each step through ``MapKinetics`` on
+   the card, timed (``weighted_densities`` over all rows with the card's
+   busy share), and grid plus spill must equal the frame weights times
+   the live atoms. 9b: the flagship residue of phase 4 (446,605 events)
+   given a seeded event table over membrane-2000 (its times; starts on
+   the 0.1 ns grid; lipids that touch 9a's residue); its frame table (the
+   memmap branch, ~3.78M rows) against a numpy expansion, then every row
+   streamed through ``GridAccumulator`` on the card at the default 40 A
+   grid, positions gathered on the host from the decoded frames: rows/s,
+   device ms a chunk by CUDA events, the busy share, host gather and
+   upload seconds, the same rows with one readback a chunk (the JAX
+   package's design), and the plain CPU version on the first 100,000
+   rows, whose grids the card's must equal.
 
 Output: one JSON line of per-kernel results (each with its bound, and the
 time of one PyTorch call that computes the same function where there is
@@ -78,6 +96,7 @@ and prints no result.
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -576,6 +595,7 @@ def full_runs(workload, tmp):
           f"10,000), total with post-processing "
           f"{time.time() - t0:.2f} s; tau {tau:.3f} CI [{lo:.3f}, {hi:.3f}]",
           flush=True)
+    return g
 
 
 def prng_checks():
@@ -1048,6 +1068,8 @@ def contacts_file_to_tau(tmp):
         require(st["passes"]["dense"] == -(-len(head) // 32)
                 and st["passes"]["pruned"] == 0,
                 f"the membrane takes the dense kernel: {st}")
+    # phase 9 works on the residue with the most events
+    return work, next(d for d in named if int(d[1:]) == top3[0])
 
 
 def contacts_bilayer(tmp):
@@ -1131,6 +1153,313 @@ def contacts_bilayer(tmp):
           flush=True)
 
 
+def _read_dx_dir(paths):
+    from basicrta_torch.io.dx import read_dx
+    out = {}
+    for p in paths:
+        grid, origin, delta = read_dx(p)
+        require(np.isfinite(grid).all() and grid.ndim == 3,
+                f"{p} does not read back")
+        out[os.path.basename(p)] = (grid, origin, delta)
+    return out
+
+
+def _grids_close(a, b, what):
+    """rtol 1e-5 of the grid's largest value; returns the worst ratio."""
+    worst = 0.0
+    for name in b:
+        x, y = a[name][0], b[name][0]
+        require(x.shape == y.shape, f"{what}: {name} shapes")
+        scale = max(float(np.abs(y).max()), 1e-30)
+        err = float(np.abs(x - y).max()) / scale
+        require(err <= 1e-5, f"{what}: {name} differs by {err:.3g} of "
+                f"its largest value")
+        worst = max(worst, err)
+    return worst
+
+
+def kinetics_file(work, label):
+    """Phase 9a: the membrane run's residue with the most events through
+    the CLI ``kinetics`` (xtc, then dcd), its files checked; then each
+    step through the API on the card, timed, with the card's busy share
+    during ``weighted_densities`` and the densities' mass checked."""
+    from basicrta_torch import cli
+    from basicrta_torch.io.native import DCDReader, XTCReader
+    from basicrta_torch.kinetics.density import GridAccumulator
+    from basicrta_torch.kinetics.mapper import MapKinetics
+    from basicrta_torch.sampler.gibbs import Gibbs
+
+    gpath = os.path.join(work, "basicrta-7.0", label,
+                         f"gibbs_{PROTEIN_SWEEPS}.npz")
+    argv = ["kinetics", "--gibbs", gpath, "--contacts", "contacts_7.0.npz",
+            "--wdensity", "--comp-trajs", "--top_n", "100"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        cli_s = {}
+        for fmt in ("xtc", "dcd"):
+            t0 = time.time()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv + ["--traj-format", fmt])
+            cli_s[fmt] = time.time() - t0
+            written = [ln.split()[-1] for ln in buf.getvalue().splitlines()
+                       if ln.startswith("wrote ")]
+            if fmt == "xtc":
+                card = _read_dx_dir([w for w in written
+                                     if w.endswith(".dx")])
+                trajs = [w for w in written if not w.endswith(".dx")]
+            else:
+                trajs += [w for w in written if w.endswith(".dcd")]
+        require(card, "kinetics wrote no density")
+        g = Gibbs.load(gpath)
+        mk = MapKinetics(g, "contacts_7.0.npz")
+        table = mk.frame_table()
+        assigned = np.argmax(table[:, 2:], axis=1)
+        for path in trajs:
+            n = (XTCReader(path) if path.endswith(".xtc")
+                 else DCDReader(path)).nframes
+            name = os.path.basename(path)
+            if name.startswith("comp"):
+                want = int((assigned == int(name[4:name.index("_")])).sum())
+            else:
+                want = min(100, len(table))
+            require(n == want, f"{name}: {n} frames, its rows {want}")
+        # the same rows' densities on the CPU (what --device cpu runs)
+        cpu_paths = MapKinetics(g, "contacts_7.0.npz",
+                                device="cpu").weighted_densities(top_n=100)
+        cpu_err = _grids_close(card, _read_dx_dir(cpu_paths),
+                               "card vs CPU densities")
+
+        # each step on the card, timed
+        steps = {}
+        mk = MapKinetics(Gibbs.load(gpath), "contacts_7.0.npz")
+        for name, fn in (("frame_table", mk.frame_table),
+                         ("create_traj", lambda: mk.create_traj(top_n=100)),
+                         ("write_component_trajs", mk.write_component_trajs)):
+            t0 = time.time()
+            fn()
+            steps[name] = time.time() - t0
+        box = {}
+
+        def densities():
+            box["paths"] = mk.weighted_densities()
+
+        wall, busy, acts = _device_busy(densities)
+        steps["weighted_densities"] = wall
+        alld = _read_dx_dir(box["paths"])
+
+        # mass: grid plus spill == sum of frame weights x live atoms
+        u = mk._open_universe()
+        idx2 = u.select_atoms(mk.meta.sel2)
+        res2 = u.topology.resids[idx2]
+        idx1 = u.select_atoms(mk.meta.sel1)
+        on_res = idx1[u.topology.resids[idx1] == int(label[1:])]
+        acc = GridAccumulator(table.shape[1] - 2,
+                              u.frame_positions([0])[0][on_res].mean(0))
+        live = 0.0
+        for lo in range(0, len(table), 512):
+            rows = table[lo:lo + 512]
+            pos, mask = mk._contact_positions(
+                u, idx2, res2, rows[:, 0].astype(int),
+                rows[:, 1].astype(int))
+            acc.add(pos, rows[:, 2:], mask, 512)
+            live += float((rows[:, 2:].sum(1) * mask.sum(1)).sum())
+        spill = float(acc._spilled.sum().item())
+        grids, _ = acc.finish()
+        mass = float(grids.sum(dtype=np.float64)) + spill
+        require(abs(mass - live) <= 1e-4 * live,
+                f"grid + spill {mass} != weights x live atoms {live}")
+        files_mass = sum(float(v[0].sum(dtype=np.float64))
+                         * float(np.prod(v[2])) * len(table)
+                         for v in alld.values())
+        require(abs(files_mass + spill - live) <= 1e-4 * live,
+                f"the written densities hold {files_mass} + spill {spill} "
+                f"of {live}")
+    finally:
+        os.chdir(cwd)
+    print(f"phase 9a kinetics {label}: {len(table)} frame-table rows, "
+          f"{table.shape[1] - 2} components; CLI --top_n 100 xtc "
+          f"{cli_s['xtc']:.2f} s, dcd {cli_s['dcd']:.2f} s; "
+          f"{len(card) + len(alld)} .dx read back, {len(trajs)} "
+          f"trajectories with their rows' frame counts; card vs CPU "
+          f"densities within {cpu_err:.3g} of the largest value; steps (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in steps.items()})}; "
+          f"weighted_densities over all rows: card busy {busy:.4f} s of "
+          f"{wall:.3f} s = {100 * busy / wall:.2f}%, {acts} device "
+          f"activities; grid + spill {mass:.6g} = weights x live atoms "
+          f"{live:.6g} (spill {spill:.6g})", flush=True)
+
+
+def densities_full_size(g, work, label, tmp):
+    """Phase 9b: the flagship residue (phase 4's chains, processed) given
+    a seeded event table over membrane-2000, its frame table (the memmap
+    branch) against a numpy expansion, and every row streamed through
+    GridAccumulator on the card at the default grid."""
+    import torch
+    from basicrta_torch.contacts.records import ContactEvents, ContactMeta
+    from basicrta_torch.io.universe import Universe
+    from basicrta_torch.kinetics.density import (GridAccumulator, accumulate,
+                                                 resolve_device)
+    from basicrta_torch.kinetics.mapper import MapKinetics
+
+    ts, chunk = 0.1, 50_000
+    u = Universe(os.path.join(work, "membrane.gro"),
+                 os.path.join(work, "membrane.xtc"))
+    idx1, idx2 = u.select_atoms("protein"), u.select_atoms("resname CHOL")
+    res = u.topology.resids
+    resid = int(label[1:])
+    t0 = time.time()
+    frames = u.frame_positions(np.arange(MEMBRANE_FRAMES))
+    decode_s = time.time() - t0
+    center = frames[0][idx1[res[idx1] == resid]].mean(axis=0)
+    lips = np.unique(res[idx2])
+    lipid_pos = np.ascontiguousarray(
+        frames[:, idx2].reshape(MEMBRANE_FRAMES, len(lips), -1, 3))
+    del frames
+    # the lipids that touch this residue in phase 8a (so their atoms land
+    # in the grid around it, as a real residue's contacts do)
+    ev8 = ContactEvents.load(os.path.join(work, "contacts_7.0.npz"))
+    near = np.unique(ev8.sel2_resids[ev8.sel1_resids == resid])
+    rng = np.random.default_rng(9)
+    n = len(g.times)
+    events = ContactEvents(
+        np.zeros(n, np.int32), rng.choice(near, n).astype(np.int32),
+        rng.integers(0, MEMBRANE_FRAMES, n) * ts, g.times,
+        ContactMeta(ts=ts, cutoff=7.0))
+    g.root = tmp
+    mk = MapKinetics(g, events)
+    t0 = time.time()
+    table = mk.frame_table()
+    table_s = time.time() - t0
+    require(isinstance(table, np.memmap), "the memmap branch was not taken")
+    # a numpy expansion of the same events
+    first = np.rint(events.start_times / ts).astype(np.int64)
+    nper = np.rint(events.durations / ts).astype(np.int64)
+    starts = np.repeat(np.cumsum(nper) - nper, nper)
+    require(len(table) == int(nper.sum()), "frame table rows")
+    require(np.array_equal(table[:, 0], np.repeat(first, nper)
+                           + np.arange(len(table)) - starts)
+            and np.array_equal(table[:, 1],
+                               np.repeat(events.sel2_resids, nper))
+            and np.array_equal(table[:, 2:], np.repeat(
+                g.pindicator_per_event(), nper, axis=0)),
+            "the frame table differs from the numpy expansion")
+    K = table.shape[1] - 2
+    dev = resolve_device()            # the card
+
+    def gather(lo, hi):
+        rows = table[lo:hi]
+        f = rows[:, 0].astype(np.int64) % MEMBRANE_FRAMES
+        lp = np.searchsorted(lips, rows[:, 1].astype(np.int64))
+        return lipid_pos[f, lp], np.asarray(rows[:, 2:], np.float32)
+
+    def stream(n_rows, readback_each_chunk=False, timed=None):
+        acc = GridAccumulator(K, center, device=dev)
+        # the JAX package's design: a fresh chunk grid, read back and
+        # added into an f32 host grid
+        host = (np.zeros((K, int(np.prod(acc._nbins)) + 1), np.float32)
+                if readback_each_chunk else None)
+        for lo in range(0, n_rows, chunk):
+            t0 = time.perf_counter()
+            pos, w = gather(lo, min(lo + chunk, n_rows))
+            t1 = time.perf_counter()
+            pos_t = torch.from_numpy(pos).to(dev)
+            w_t = torch.from_numpy(w).to(dev)
+            t2 = time.perf_counter()
+            if timed is not None:
+                a, b = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                a.record()
+            if readback_each_chunk:
+                out = accumulate(pos_t, w_t, torch.ones(
+                    pos_t.shape[:2], device=dev), acc._gmin, acc._delta,
+                    acc._nbins)
+                host += out.cpu().numpy()
+            else:
+                acc.add(pos_t, w_t, frame_chunk=chunk)
+            if timed is not None:
+                b.record()
+                timed["events"].append((a, b))
+                timed["gather_s"] += t1 - t0
+                timed["upload_s"] += t2 - t1
+        if readback_each_chunk:
+            return host
+        return acc
+
+    n_rows = len(table)
+    stream(n_rows)                                     # warm: allocator
+    torch.cuda.synchronize()
+
+    def one_readback():
+        timed = {"events": [], "gather_s": 0.0, "upload_s": 0.0}
+        t0 = time.time()
+        acc = stream(n_rows, timed=timed)
+        grids, _ = acc.finish()
+        return time.time() - t0, timed, acc, grids
+
+    def per_chunk_readback():
+        t0 = time.time()
+        host = stream(n_rows, readback_each_chunk=True)
+        torch.cuda.synchronize()
+        return time.time() - t0, host
+
+    # the two designs in turns: this one, the JAX package's twice, this
+    wall, timed, acc, grids = one_readback()
+    parent_s = [per_chunk_readback()[0]]
+    parent_s2, parent = per_chunk_readback()
+    parent_s.append(parent_s2)
+    wall2 = one_readback()[0]
+    dev_ms = [a.elapsed_time(b) for a, b in timed["events"]]
+    spill = acc._spilled.cpu().numpy()
+    pwall, busy, acts = _device_busy(lambda: stream(n_rows))
+    nvox = int(np.prod(acc._nbins))
+    perr = float(np.abs(parent[:, :nvox].reshape(grids.shape) - grids).max()
+                 ) / max(float(np.abs(grids).max()), 1e-30)
+    # two f32 summation orders over millions of rows: the hottest voxels
+    # take ~1e6 additions each, so the orders part at ~1e-4 of the largest
+    # value (the JAX package's f32 grids carry the same rounding)
+    require(perr <= 1e-3, f"the per-chunk readback run differs by {perr}")
+    # the plain version on the CPU, first 100,000 rows, against the card
+    head = min(100_000, n_rows)
+    pos, w = gather(0, head)
+    plain = GridAccumulator(K, center, device="cpu")
+    t0 = time.time()
+    plain.add(pos, w, frame_chunk=chunk)
+    plain_s = time.time() - t0
+    card_head = stream(head)
+    a = card_head.grids.cpu().numpy()
+    b = plain.grids.numpy()
+    herr = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+    require(herr <= 1e-5, f"the first chunks' grids differ from the plain "
+            f"version by {herr:.3g} of the largest value")
+    total = float(grids.sum(dtype=np.float64) + spill.sum())
+    want = float(np.asarray(table[:, 2:]).sum(dtype=np.float64)
+                 * lipid_pos.shape[2])
+    require(abs(total - want) <= 1e-4 * want,
+            f"grid + spill {total} != weights x atoms {want}")
+    print(f"phase 9b densities at full size: {n_rows} frame-table rows "
+          f"(memmap, {table_s:.2f} s, == the numpy expansion) of {n} "
+          f"events, K = {K}, {lipid_pos.shape[2]} atoms a row, grid "
+          f"{acc._nbins}; decode of {MEMBRANE_FRAMES} frames {decode_s:.2f} s "
+          f"(held in memory); {n_rows / wall:,.0f} and {n_rows / wall2:,.0f} "
+          f"rows/s ({wall:.3f} / {wall2:.3f} s in "
+          f"{len(dev_ms)} chunks of {chunk}); device ms a chunk by CUDA "
+          f"events: mean {np.mean(dev_ms):.4f}, min {min(dev_ms):.4f}, max "
+          f"{max(dev_ms):.4f}, sum {sum(dev_ms):.2f}; host gather "
+          f"{timed['gather_s']:.3f} s, upload {timed['upload_s']:.3f} s; "
+          f"profiled run {pwall:.3f} s, device busy {busy:.4f} s = "
+          f"{100 * busy / pwall:.2f}%, {acts} activities; one readback a "
+          f"chunk (the JAX package's design, run between the two) "
+          f"{parent_s[0]:.3f} / {parent_s[1]:.3f} s = "
+          f"{n_rows / parent_s[0]:,.0f} / {n_rows / parent_s[1]:,.0f} rows/s "
+          f"(equal within {perr:.2g} of the largest value); "
+          f"plain CPU version on the first {head} rows {plain_s:.3f} s = "
+          f"{head / plain_s:,.0f} rows/s, card within {herr:.3g} of the "
+          f"largest value; spill {100 * spill.sum() / total:.3f}% of "
+          f"{total:.6g}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1161,16 +1490,24 @@ def main():
     print(f"phase 1 build: {time.time() - t0:.2f} s", flush=True)
 
     if len(sys.argv) > 1:
-        # python3 chip_smoke.py --only 5,8: the phases that stand alone,
+        # python3 chip_smoke.py --only 5,8,9: the phases that stand alone,
         # while iterating on them; prints no result line
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"5", "8"}, "--only takes 5 and/or 8")
+        require(only <= {"5", "8", "9"}, "--only takes 5, 8 and/or 9")
         if "5" in only:
             prng_checks()
-        if "8" in only:
-            with tempfile.TemporaryDirectory() as tmp:
-                contacts_file_to_tau(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            if only & {"8", "9"}:
+                work, label = contacts_file_to_tau(tmp)
+            if "8" in only:
                 contacts_bilayer(tmp)
+            if "9" in only:
+                kinetics_file(work, label)
+                from basicrta_torch.sampler.gibbs import Gibbs
+                g = Gibbs(make_workload()[0], residue="R0", cutoff=7.0,
+                          root=tmp).run()
+                g.process_gibbs()
+                densities_full_size(g, work, label, tmp)
         print(f"partial run (phases 1, {sorted(only)}): no result")
         return 0
     workload = make_workload()
@@ -1178,13 +1515,15 @@ def main():
     k3 = packed_checks(workload)
     with tempfile.TemporaryDirectory() as tmp:
         launches, pow2_launches, layouts = protein_run(workload, tmp)
-        full_runs(workload, tmp)
+        flagship = full_runs(workload, tmp)
     k5 = prng_checks()
     k4 = tree_checks(workload, layouts["production"][0])
     k6 = roofline_checks(layouts, report, k3, k5)
     with tempfile.TemporaryDirectory() as tmp:
-        contacts_file_to_tau(tmp)
+        work, label = contacts_file_to_tau(tmp)
         contacts_bilayer(tmp)
+        kinetics_file(work, label)
+        densities_full_size(flagship, work, label, tmp)
     require("jax" not in sys.modules, "jax was imported")
     require("basicrta_tpu" not in sys.modules, "basicrta_tpu was imported")
 

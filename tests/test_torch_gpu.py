@@ -500,3 +500,60 @@ def test_contact_scan_on_the_card_against_the_host_version(dev):
     shared, lone, err = ref.check_records(
         rec, range(6), lambda f: (pos[f], box[f]), idx1, r1, idx2, r2, 10.0)
     assert shared > 0 and err <= 1e-4
+
+
+def _density_chunks(seed=4, F=300, A=50, K=3):
+    """Membrane-like rows: lipids in a 40 A cube around the origin, some
+    atoms exactly on voxel edges, some outside the grid, ragged masks."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(0, 8.0, (F, A, 3)).astype(np.float32)
+    pos[:, :6] = rng.integers(-20, 21, (F, 6, 3)).astype(np.float32)
+    pos[:, 6:9] += rng.choice([-40.0, 40.0], (F, 3, 3)).astype(np.float32)
+    w = rng.dirichlet(np.ones(K), F).astype(np.float32)
+    mask = (rng.random((F, A)) < 0.9).astype(np.float32)
+    return pos, w, mask
+
+
+def test_grid_accumulator_on_the_card_equals_the_cpu(dev):
+    from basicrta_torch.kinetics.density import GridAccumulator
+    pos, w, mask = _density_chunks()
+    accs = {d: GridAccumulator(3, [0.0, 0.0, 0.0], delta=1.0, device=d)
+            for d in ("cpu", dev)}
+    for acc in accs.values():
+        for lo in (0, 100, 200):
+            acc.add(pos[lo:lo + 100], w[lo:lo + 100], mask[lo:lo + 100],
+                    frame_chunk=64)
+    with pytest.warns(UserWarning, match="outside the grid"):
+        cpu, _ = accs["cpu"].finish()
+    with pytest.warns(UserWarning, match="outside the grid"):
+        card, _ = accs[dev].finish()
+    np.testing.assert_allclose(card, cpu, rtol=0,
+                               atol=1e-5 * np.abs(cpu).max())
+    np.testing.assert_allclose(accs[dev]._spilled.cpu().numpy(),
+                               accs["cpu"]._spilled.numpy(), rtol=1e-6)
+    # every live atom's weight is in the grid or the spill bin
+    total = card.reshape(3, -1).sum(1) + accs[dev]._spilled.cpu().numpy()
+    np.testing.assert_allclose(total, (w[:, :, None] * mask[:, None, :])
+                               .sum((0, 2)), rtol=1e-5)
+
+
+def test_grid_stays_on_the_card_until_finish(dev):
+    from basicrta_torch.kinetics.density import GridAccumulator
+    pos, w, mask = (torch.as_tensor(x, device=dev)
+                    for x in _density_chunks(seed=5))
+    acc = GridAccumulator(3, [0.0, 0.0, 0.0], device=dev)
+    torch.cuda.synchronize()
+    # any device-to-host copy (or other synchronising call) in add raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for lo in range(0, len(pos), 100):
+            acc.add(pos[lo:lo + 100], w[lo:lo + 100], mask[lo:lo + 100],
+                    frame_chunk=100)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert acc.grids.is_cuda and acc._spilled.is_cuda
+    assert acc.grids.data_ptr() == acc._buf.data_ptr()
+    with pytest.warns(UserWarning, match="outside the grid"):
+        grids, _ = acc.finish()
+    assert isinstance(grids, np.ndarray) and grids.shape == (3, 40, 40, 40)
+    assert acc.n_rows == len(pos)

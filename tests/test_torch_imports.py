@@ -1,6 +1,7 @@
-"""basicrta_torch stands alone: every module imports with the JAX package
-and JAX blocked, and its own GibbsConfig writes the JAX package's JSON, so
-artifacts of either package load in the other."""
+"""basicrta_torch stands alone: every module imports with the JAX package,
+JAX, matplotlib and scikit-learn blocked (the card's machine has none of
+them), and its own GibbsConfig writes the JAX package's JSON, so artifacts
+of either package load in the other."""
 
 import json
 import os
@@ -29,15 +30,21 @@ def test_every_module_imports_with_jax_blocked():
     for new in ("contacts.distances", "contacts.events", "contacts.mapper",
                 "contacts.quantize", "contacts.__main__", "io.amber",
                 "io.gmxdump", "io.native", "io.topology", "io.universe",
-                "scripts.contacts_reference", "scripts.workload"):
+                "scripts.contacts_reference", "scripts.workload",
+                "io.dx", "kinetics.density", "kinetics.mapper",
+                "kinetics.__main__", "plots", "protein.homologues", "gibbs",
+                "cluster"):
         assert f"basicrta_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['basicrta_tpu'] = None\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['matplotlib'] = None\n"
+            "sys.modules['sklearn'] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'basicrta_tpu') and sys.modules[m]]\n"
+            "('jax', 'jaxlib', 'basicrta_tpu', 'matplotlib', 'sklearn') "
+            "and sys.modules[m]]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
