@@ -6,7 +6,8 @@ on to what users look at::
     basicrta-torch contacts --top t.gro --traj t.xtc --sel1 protein \
         --sel2 "resname CHOL" --cutoff 7.0 [--device cuda|cpu]
     basicrta-torch gibbs --contacts contacts_7.0.npz [--resid 313] \
-        [--engine cuda|torch] [--mode batched|sequential]
+        [--engine cuda|torch|collapsed] [--device cuda|cpu] \
+        [--mode batched|sequential]
     basicrta-torch status --cutoff 7.0
     basicrta-torch cluster --cutoff 7.0 [--engine cuda|torch] \
         [--prot b2ar] [--structure s.pdb] [--all-clusters] [--diagnostics]
@@ -136,7 +137,8 @@ def _cmd_gibbs(args):
 
     def run():
         return driver.run(run_resids=run_resids, mode=args.mode,
-                          engine=args.engine, progress_cb=progress)
+                          engine=args.engine, device=args.device,
+                          progress_cb=progress)
 
     if args.profile:
         results = _profiled(run, args.profile)
@@ -339,10 +341,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "split-R-hat/ESS; 1 is the reference's single "
                         "chain)")
     g.add_argument("--seed", type=int, default=0)
-    g.add_argument("--engine", choices=["cuda", "torch"], default="cuda",
+    g.add_argument("--engine", choices=["cuda", "torch", "collapsed"],
+                   default=None,
                    help="sweep engine: the fused CUDA kernels on the card "
-                        "(default), or their plain PyTorch versions on the "
-                        "CPU")
+                        "(cuda, the default), their plain PyTorch versions "
+                        "(torch, on the CPU unless --device cuda), or the "
+                        "reference collapsed sweep (collapsed, the "
+                        "counterpart of the JAX package's xla engine)")
+    g.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where the engine runs: the card (the default; "
+                        "raises without one), or the CPU (the default of "
+                        "--engine torch)")
     g.add_argument("--mode", choices=["batched", "sequential"],
                    default="batched",
                    help="every residue as lanes of one run (default), or "

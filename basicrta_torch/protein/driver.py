@@ -128,8 +128,10 @@ class ParallelGibbs:
             progress_cb=None) -> Dict[str, Gibbs]:
         """Sample all residues (or ``run_resids``) and post-process them.
 
-        ``mode='batched'`` runs every residue as lanes of the fused kernels
-        on the engine's layout (see ``run_residues``), then post-processes
+        ``mode='batched'`` runs every residue as lanes of ``engine`` (the
+        fused kernels, their plain versions or the reference collapsed
+        sweep; see ``resolve_engine``) on the engine's layout (see
+        ``run_residues``), then post-processes
         them in bucketed batches on the same device; ``mode='sequential'``
         runs one residue at a time through :func:`run_residue` (lower peak
         memory; each residue's result is that of ``Gibbs(...).run()``

@@ -19,6 +19,16 @@ the same buckets. Segments checkpoint and resume exactly, because the
 kernels reseed every sweep from the absolute sweep index; for the same
 reason :func:`run_residues` can keep every bucket on the card at once, each
 on a CUDA stream of its own, and still return each bucket's own chain.
+
+Three engines advance a bucket: 'cuda' (the fused kernels), 'torch' (their
+plain versions, draw for draw) and 'collapsed', the counterpart of the JAX
+package's ``xla`` engine: the reference collapsed sweep of
+:mod:`basicrta_torch.sampler.kernels` as batched torch ops over the
+bucket's (lanes, V) layout, written apart from the kernels, so the
+kernels can be held against it in law. Its lanes share one generator a
+segment, seeded from (seed, bucket, segment index): a resumed run is
+bitwise the uninterrupted one, and each lane is independent of its mates
+in law.
 """
 
 from __future__ import annotations
@@ -40,10 +50,11 @@ from basicrta_torch.sampler.cuda_sweep import (pad_tiers_to_rows,
                                                segment_packed_torch,
                                                segment_torch)
 from basicrta_torch.sampler.kernels import (SMALL_NMAX, MixtureState,
+                                            _thinned_scan, collapsed_sweep,
                                             compute_tiers, dedup_times,
                                             init_mixture_params)
 
-ENGINES = ("cuda", "torch")
+ENGINES = ("cuda", "torch", "collapsed")
 
 
 def _next_pow2(n: int, floor: int = 128, step: int = 2) -> int:
@@ -522,24 +533,47 @@ def resolve_engine(engine: Optional[str] = None,
                    device=None) -> Tuple[str, torch.device]:
     """Engine and device of a run: 'cuda' launches the fused kernels and
     needs a CUDA device; 'torch' runs their plain versions on ``device``
-    (default the CPU). With no engine named the run takes 'cuda', or
-    'torch' when the caller gives a CPU ``device``: nothing falls back to
-    the CPU because no GPU was found."""
+    (default the CPU); 'collapsed' runs the reference collapsed sweep on
+    ``device`` (default the card). With no engine named the run takes
+    'cuda', or 'torch' when the caller gives a CPU ``device``: nothing
+    falls back to the CPU because no GPU was found."""
     if engine is None:
         cpu = device is not None and torch.device(device).type == "cpu"
         engine = "torch" if cpu else "cuda"
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
     if device is None:
-        device = "cuda" if engine == "cuda" else "cpu"
+        device = "cpu" if engine == "torch" else "cuda"
     device = torch.device(device)
-    if engine == "cuda" and (device.type != "cuda"
-                             or not torch.cuda.is_available()):
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"engine {engine!r} on {device} needs a CUDA "
+                           f"device and none is available; pass "
+                           f"device='cpu' for the CPU")
+    if engine == "cuda" and device.type != "cuda":
         raise RuntimeError(f"engine 'cuda' needs a CUDA device; got "
-                           f"{device} (cuda available: "
-                           f"{torch.cuda.is_available()}); pass "
-                           f"engine='torch' or device='cpu' for the CPU")
+                           f"{device}; pass engine='torch' or device='cpu' "
+                           f"for the CPU")
     return engine, device
+
+
+def _segment(generator: torch.Generator, state: MixtureState,
+             values: torch.Tensor, counts: torch.Tensor, cfg: GibbsConfig,
+             n_blocks: int, tiers: Optional[Tuple[int, int]] = None):
+    """The collapsed engine's segment: every lane of (lanes, V) advances by
+    ``n_blocks * g`` reference collapsed sweeps. Returns the advanced
+    state and the (lanes, n_blocks, K) thinned samples."""
+    def sweep(gen, st):
+        return collapsed_sweep(gen, st, values, counts, cfg, tiers=tiers)[0]
+    return _thinned_scan(sweep, generator, state, cfg.g, n_blocks)
+
+
+def _segment_generator(seed: int, salt: int, seg_idx: int,
+                       device: torch.device) -> torch.Generator:
+    """The collapsed engine's generator of one segment of one bucket."""
+    h = hashlib.sha256(f"{seed}:{salt}:{seg_idx}".encode()).digest()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int.from_bytes(h[:8], "little") & 0x7FFFFFFFFFFFFFFF)
+    return gen
 
 
 def _kernel_layout(batch: ResidueBatch):
@@ -596,8 +630,13 @@ class _BucketRun:
         B = batch.size
         K = cfg.ncomp
         pack = batch.pack
-        values_np, counts_np, tiers, seg_id, slot_np, Bs = _kernel_layout(
-            batch)
+        if engine == "collapsed":
+            # the logical (lanes, V) layout, as the JAX xla engine runs it
+            values_np, counts_np, tiers, seg_id, slot_np, Bs = (
+                batch.values, batch.counts, batch.tiers, None, None, B)
+        else:
+            values_np, counts_np, tiers, seg_id, slot_np, Bs = (
+                _kernel_layout(batch))
         values = torch.as_tensor(values_np, dtype=torch.float32,
                                  device=device)
         counts = torch.as_tensor(counts_np, dtype=torch.float32,
@@ -641,17 +680,23 @@ class _BucketRun:
                 r[rows] = torch.as_tensor(ck.rates, dtype=torch.float32,
                                           device=device)
                 self.state = MixtureState(w, r)
-        if pack > 1:
+        if engine == "collapsed":
+            def step(seg_idx, st, nb):
+                gen = _segment_generator(cfg.seed, bucket_salt, seg_idx,
+                                         device)
+                return _segment(gen, st, values, counts, cfg, nb, tiers)
+        elif pack > 1:
             fn = segment_packed if engine == "cuda" else segment_packed_torch
 
-            def step(offset, st, nb):
-                return fn(seed0, offset, st, values, counts, cfg, nb, tiers,
-                          pack, seg_mask if mixed else None)
+            def step(seg_idx, st, nb):
+                return fn(seed0, self.done * cfg.g, st, values, counts, cfg,
+                          nb, tiers, pack, seg_mask if mixed else None)
         else:
             fn = segment if engine == "cuda" else segment_torch
 
-            def step(offset, st, nb):
-                return fn(seed0, offset, st, values, counts, cfg, nb, tiers)
+            def step(seg_idx, st, nb):
+                return fn(seed0, self.done * cfg.g, st, values, counts, cfg,
+                          nb, tiers)
 
         def members(x):
             """Kernel rows (slots or padded lanes) -> the B members."""
@@ -674,8 +719,7 @@ class _BucketRun:
         """Launch the next segment; nothing is copied to the host."""
         nb = min(self.segment_blocks, self.total_blocks - self.done)
         with self._on_stream():
-            self.state, W, R = self._step(self.done * self.cfg.g, self.state,
-                                          nb)
+            self.state, W, R = self._step(self.seg_idx, self.state, nb)
             self._pending = (nb, self._members(W), self._members(R))
 
     def collect(self):
@@ -751,9 +795,10 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
             same for any segmentation.
         checkpoint_cb: optional ``f(segment_idx, state, (Ws, Rs))``.
         progress_cb: optional ``f(done_sweeps, total_sweeps)``.
-        engine: 'cuda' (the fused kernels, the default) or 'torch' (their
-            plain versions; see :func:`resolve_engine`). Packed buckets
-            run K3 (``segment_packed``), the others K2 (``segment``).
+        engine: 'cuda' (the fused kernels, the default), 'torch' (their
+            plain versions) or 'collapsed' (the reference collapsed sweep;
+            see :func:`resolve_engine`). On 'cuda' packed buckets run K3
+            (``segment_packed``), the others K2 (``segment``).
         device: where the lanes live; defaults from the engine.
     """
     engine, device = resolve_engine(engine, device)
@@ -798,7 +843,8 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
     Chains are extra lanes (the residue repeated as ``name#chain``).
     Residues with no events are omitted. ``ladder`` picks the layout:
     'engine' follows the engine as the JAX package does (the production
-    layout for 'cuda', the pow2 ladder for 'torch'); None forces the
+    layout for 'cuda', the pow2 ladder for 'torch' and 'collapsed', as
+    for the JAX package's 'xla'); None forces the
     production layout and 'pow2' the pow2 ladder. ``kwargs`` go to
     :func:`run_batches` (engine, device, progress_cb, checkpoint_cb,
     segment_blocks); ``checkpoint_dir`` holds one checkpoint a bucket.

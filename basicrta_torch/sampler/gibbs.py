@@ -26,7 +26,10 @@ from basicrta_torch.postprocess.clustering import (ClusterResult,
 from basicrta_torch.postprocess.tau import (AllNoiseError, estimate_params,
                                             estimate_tau, estimate_tau_all)
 from basicrta_torch.sampler.batch import resolve_engine, run_residues
-from basicrta_torch.sampler.kernels import dedup_times
+from basicrta_torch.sampler.kernels import (compute_tiers, dedup_times,
+                                            run_chains)
+
+MODES = ("collapsed", "dense")
 
 
 class Gibbs:
@@ -72,15 +75,44 @@ class Gibbs:
                             str(self.residue))
 
     def run(self, engine: Optional[str] = None, device=None,
-            save: bool = True) -> "Gibbs":
-        """Sample ``cfg.n_chains`` chains as lanes of the fused kernel
-        ('cuda', the default, on the card), or of its plain version
-        ('torch', or a CPU ``device``); see ``resolve_engine``."""
-        engine, self.device = resolve_engine(engine, device)
-        samples = run_residues({str(self.residue): self.times}, self.cfg,
-                               n_chains=self.cfg.n_chains, engine=engine,
-                               device=self.device)
-        self.mcweights, self.mcrates = samples[str(self.residue)]
+            save: bool = True, mode: Optional[str] = None) -> "Gibbs":
+        """Sample ``cfg.n_chains`` chains.
+
+        By default they run as lanes of a bucket on ``engine``: the fused
+        kernel ('cuda', the default, on the card), its plain version
+        ('torch', or a CPU ``device``) or the reference collapsed sweep
+        ('collapsed'); see ``resolve_engine``. ``mode`` runs the reference
+        chains directly instead, on ``device`` (default the card):
+        'collapsed' (the deduplicated sweep, values in multiplicity
+        order) or 'dense' (the literal per-event sweep)."""
+        if mode is None:
+            engine, self.device = resolve_engine(engine, device)
+            samples = run_residues({str(self.residue): self.times},
+                                   self.cfg, n_chains=self.cfg.n_chains,
+                                   engine=engine, device=self.device)
+            W, R = samples[str(self.residue)]
+        else:
+            if mode not in MODES:
+                raise ValueError(f"unknown mode {mode!r}; use one of "
+                                 f"{MODES} or None")
+            if engine is not None:
+                raise ValueError(f"mode {mode!r} runs the reference chains "
+                                 f"and takes no engine (got {engine!r})")
+            _, self.device = resolve_engine("collapsed", device)
+            tiers = None
+            if mode == "collapsed":
+                # the thinned (w, r) samples do not depend on the order
+                order, tiers = compute_tiers(self._counts)
+                data, aux = self._values[order], self._counts[order]
+            else:
+                data, aux = self.times, None
+            data, aux = (None if a is None else torch.as_tensor(
+                a, dtype=torch.float32, device=self.device)
+                for a in (data, aux))
+            W, R = run_chains(self._generator(0), data, aux, self.cfg, mode,
+                              self.cfg.n_chains, tiers)
+            W, R = W.cpu().numpy(), R.cpu().numpy()
+        self.mcweights, self.mcrates = W, R
         if save:
             self.save()
         return self

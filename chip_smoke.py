@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of basicrta_torch's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only 5,8,9]
+    python3 chip_smoke.py [--only 5,8,9,10]
 
 With no arguments every phase runs and the result lines are printed;
-``--only`` runs phase 1 and the named phases that stand alone (5, 8, 9;
-9 runs 8a and the flagship residue of phase 4 first) and prints no
-result.
+``--only`` runs phase 1 and the named phases that stand alone (5, 8, 9,
+10; 9 runs 8a and the flagship residue of phase 4 first, 10 the flagship)
+and prints no result.
 
 Phases (each raises on failure, so any failure exits non-zero):
 
@@ -86,6 +86,21 @@ Phases (each raises on failure, so any failure exits non-zero):
    upload seconds, the same rows with one readback a chunk (the JAX
    package's design), and the plain CPU version on the first 100,000
    rows, whose grids the card's must equal.
+10. the sweep kernels held in law against independent samplers. 10a:
+   simulation-based calibration (``basicrta_torch.scripts.sbc`` at its
+   defaults: 64 replicates of 2,000 events, K = 5, 20,000 sweeps) on the
+   'cuda' engine with uniform sizes and with mixed sizes (K2/K3, never a
+   plain version) and on the 'collapsed' engine, each at seeds 0, 1, 2: a
+   functional fails when its rank-uniformity p is below 0.001 at any seed
+   or below 0.01 at two. 10b: the numpy reference-semantics sampler
+   against the 'cuda' and 'collapsed' engines on
+   ``tests/test_equivalence.py``'s dataset and rules. 10c: the reference
+   collapsed and dense chains (``Gibbs.run(mode=...)``) on the flagship
+   residue: us and kernels a sweep, the card's busy share, finite tau,
+   the collapsed CI against phase 4's. 10d: ``scripts/validate.py``'s
+   full protein at 110,000 sweeps x 2 chains on the 'cuda' engine (sampling
+   and post-processing seconds, finite tau, the split-R-hat distribution),
+   then its 4 highest-R-hat residues on the 'collapsed' engine.
 
 Output: one JSON line of per-kernel results (each with its bound, and the
 time of one PyTorch call that computes the same function where there is
@@ -353,8 +368,9 @@ def packed_checks(workload):
 
 
 def _device_busy(fn):
-    """(wall seconds, device-busy seconds, device activities) of ``fn``
-    under torch.profiler: the union of the device activities' spans."""
+    """(wall seconds, device-busy seconds, device activities, kernels) of
+    ``fn`` under torch.profiler: the union of the device activities'
+    spans; the kernels are the activities that are not copies or sets."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -368,15 +384,16 @@ def _device_busy(fn):
         fn()
         torch.cuda.synchronize()
     wall = time.time() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    acts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in acts)
     busy, end = 0.0, -1.0
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return wall, busy / 1e6, len(spans)
+    kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in acts)
+    return wall, busy / 1e6, len(spans), kernels
 
 
 _device_busy.warm = False
@@ -501,7 +518,7 @@ def protein_run(workload, tmp):
         f = os.path.join(base, lab, f"gibbs_{PROTEIN_SWEEPS}.npz")
         if os.path.exists(f):
             loaded[lab] = Gibbs.load(f)
-    prof_s, busy, n_acts = _device_busy(
+    prof_s, busy, n_acts, _ = _device_busy(
         lambda: driver.finish_batch(loaded, save=False))
     print(f"phase 3 post-processing profiled: {len(loaded)} residues in "
           f"{prof_s:.2f} s (profiler on), "
@@ -933,7 +950,8 @@ def scan_breakdown(label, mc, u, B, frames=None):
     warm = time.time() - t0
     st = mc.stats
     mc.time_device = False
-    wall, busy, acts = _device_busy(lambda: mc.run(u.iter_batches(B, frames)))
+    wall, busy, acts, _ = _device_busy(
+        lambda: mc.run(u.iter_batches(B, frames)))
     print(f"phase 8 {label}: {n} frames, {B} a batch, upload "
           f"{mc.cfg.upload_dtype}; warm {n / warm:.2f} frames/s "
           f"({warm:.3f} s); per frame: decode {decode:.5f} s (the reader "
@@ -1245,7 +1263,7 @@ def kinetics_file(work, label):
         def densities():
             box["paths"] = mk.weighted_densities()
 
-        wall, busy, acts = _device_busy(densities)
+        wall, busy, acts, _ = _device_busy(densities)
         steps["weighted_densities"] = wall
         alld = _read_dx_dir(box["paths"])
 
@@ -1412,7 +1430,7 @@ def densities_full_size(g, work, label, tmp):
     wall2 = one_readback()[0]
     dev_ms = [a.elapsed_time(b) for a, b in timed["events"]]
     spill = acc._spilled.cpu().numpy()
-    pwall, busy, acts = _device_busy(lambda: stream(n_rows))
+    pwall, busy, acts, _ = _device_busy(lambda: stream(n_rows))
     nvox = int(np.prod(acc._nbins))
     perr = float(np.abs(parent[:, :nvox].reshape(grids.shape) - grids).max()
                  ) / max(float(np.abs(grids).max()), 1e-30)
@@ -1460,6 +1478,281 @@ def densities_full_size(g, work, label, tmp):
           f"{total:.6g}", flush=True)
 
 
+SBC_SEEDS = (0, 1, 2)          # phase 10a: each SBC run at three seeds
+COLLAPSED_BUDGET_S = 90        # phase 10d: the collapsed re-run's budget
+
+
+def _sweep_launches():
+    """The sweep kernels' launch counters and their plain versions' call
+    counters, by name."""
+    from basicrta_torch.sampler import cuda_sweep as cs
+    out = {f.__name__: f.launches for f in (cs.segment, cs.segment_packed)}
+    out.update({f.__name__: f.calls
+                for f in (cs.segment_torch, cs.segment_packed_torch)})
+    return out
+
+
+def _reset_sweep_launches():
+    from basicrta_torch.sampler import cuda_sweep as cs
+    for f in (cs.segment, cs.segment_packed):
+        f.launches = 0
+    for f in (cs.segment_torch, cs.segment_packed_torch):
+        f.calls = 0
+
+
+def sbc_checks():
+    """Phase 10a: simulation-based calibration on the card at the JAX
+    script's defaults (M = 64, 2,000 events, K = 5, 20,000 sweeps, g 100,
+    burn-in 4,000): the 'cuda' engine with uniform and with mixed replicate
+    sizes (K2/K3, never a plain version) and the 'collapsed' engine, each
+    at three seeds. A functional fails when its p is below 0.001 at any
+    seed or below 0.01 at two."""
+    import torch
+    from basicrta_torch.scripts.sbc import run_sbc
+    failed = []
+    for tag, engine, mixed in (("cuda uniform", "cuda", False),
+                               ("cuda mixed", "cuda", True),
+                               ("collapsed uniform", "collapsed", False)):
+        runs = []
+        for seed in SBC_SEEDS:
+            _reset_sweep_launches()
+            t0 = time.time()
+            pvals, _ = run_sbc(seed=seed, engine=engine, mixed_sizes=mixed,
+                               progress=lambda line: print(
+                                   f"phase 10a {tag} seed {seed}: {line}",
+                                   flush=True))
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = _sweep_launches()
+            if engine == "cuda":
+                require(launches["segment"] + launches["segment_packed"] > 0,
+                        f"SBC {tag}: K2/K3 never launched: {launches}")
+                require(launches["segment_torch"]
+                        + launches["segment_packed_torch"] == 0,
+                        f"SBC {tag}: plain versions ran: {launches}")
+            if mixed:
+                require(launches["segment_packed"] > 0,
+                        f"SBC {tag}: K3 never launched: {launches}")
+            print(f"phase 10a {tag} seed {seed}: p {json.dumps(pvals)} in "
+                  f"{secs:.2f} s; launches {json.dumps(launches)}",
+                  flush=True)
+            runs.append(pvals)
+        for f in runs[0]:
+            ps = [r[f] for r in runs]
+            if min(ps) < 0.001 or sum(p < 0.01 for p in ps) >= 2:
+                failed.append((tag, f, ps))
+        print(f"phase 10a {tag}: "
+              f"{'FAIL' if any(t == tag for t, _, _ in failed) else 'pass'}"
+              f" under the three-seed rule", flush=True)
+    require(not failed, f"SBC failed (engine, functional, p at seeds "
+            f"{SBC_SEEDS}): {failed}")
+
+
+def reference_cross_check():
+    """Phase 10b: ``tests/test_equivalence.py``'s dataset and rules, the
+    numpy reference sampler on the host against the 'cuda' and
+    'collapsed' engines on the card: the dominant component's mean weight
+    and rate within 8 standard errors + 1e-4, a two-sample KS on its rate
+    with p > 1e-4, and overlapping 95% intervals of the slowest process's
+    tau."""
+    from scipy import stats
+
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.ops.surv import discretize_times, simulate_hyperexp
+    from basicrta_torch.sampler.batch import bucket_residues, run_batch
+    from basicrta_torch.scripts.reference_sampler import (
+        numpy_reference_sampler)
+    from basicrta_torch.scripts.validate import dominant, slow_taus
+
+    x = discretize_times(simulate_hyperexp(
+        12000, [0.8, 0.17, 0.03], [3.0, 0.25, 0.02],
+        np.random.default_rng(99)), 0.1)
+    cfg = GibbsConfig(ncomp=5, niter=3000, g=10, burnin=1000, seed=11)
+    burn, wcut = cfg.burnin_samples, cfg.wcutoff(len(x))
+    t0 = time.time()
+    Wn, Rn = numpy_reference_sampler(x, cfg, seed=1)
+    print(f"phase 10b numpy reference: {len(x)} events, {cfg.niter} sweeps "
+          f"in {time.time() - t0:.2f} s", flush=True)
+    w_ref, r_ref = dominant(Wn, Rn, burn)
+    ci_ref = np.percentile(slow_taus(Wn, Rn, burn, wcut), [2.5, 97.5])
+    batch = bucket_residues({"R": x})[0]
+    for engine in ("cuda", "collapsed"):
+        t0 = time.time()
+        res = run_batch(batch, cfg, engine=engine)
+        secs = time.time() - t0
+        W, R = res.mcweights[0], res.mcrates[0]
+        w_our, r_our = dominant(W, R, burn)
+        gaps = []
+        for ref, our in ((w_ref, w_our), (r_ref, r_our)):
+            se = ref.std() * np.sqrt(2.0 / len(ref))
+            gaps.append((abs(ref.mean() - our.mean()), 8 * se + 1e-4))
+        ks = stats.ks_2samp(r_ref, r_our).pvalue
+        ci = np.percentile(slow_taus(W, R, burn, wcut), [2.5, 97.5])
+        overlap = ci[0] <= ci_ref[1] and ci_ref[0] <= ci[1]
+        print(f"phase 10b {engine}: {secs:.2f} s; dominant weight ref "
+              f"{w_ref.mean():.5f} ours {w_our.mean():.5f} (|d| "
+              f"{gaps[0][0]:.2e} < {gaps[0][1]:.2e}), rate ref "
+              f"{r_ref.mean():.5f} ours {r_our.mean():.5f} (|d| "
+              f"{gaps[1][0]:.2e} < {gaps[1][1]:.2e}); KS rate p {ks:.4g}; "
+              f"slowest tau CI ref [{ci_ref[0]:.2f}, {ci_ref[1]:.2f}] ours "
+              f"[{ci[0]:.2f}, {ci[1]:.2f}]", flush=True)
+        require(all(d < lim for d, lim in gaps),
+                f"{engine}: dominant component off the reference: {gaps}")
+        require(ks > 1e-4, f"{engine}: KS p {ks}")
+        require(overlap, f"{engine}: slowest tau CIs apart: {ci} {ci_ref}")
+
+
+def reference_chains(workload, flagship, tmp):
+    """Phase 10c: ``Gibbs.run(mode='collapsed')`` on the flagship residue
+    at 11,000 sweeps and ``mode='dense'`` at 1,100, each with its us a
+    sweep, and kernels a sweep and the card's busy share by
+    torch.profiler over 100 sweeps; tau and CI finite, and the collapsed
+    CI must overlap phase 4's flagship CI (the 'cuda' engine, 110,000
+    sweeps). Returns the collapsed engine's seconds a sweep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.sampler.gibbs import Gibbs
+    from basicrta_torch.sampler.kernels import (compute_tiers, dedup_times,
+                                                run_chains)
+
+    x = workload[0]
+    v, c = dedup_times(x)
+    order, tiers = compute_tiers(c)
+    rate = {}
+    # burn-in as the CLI sets it (a tenth); the dense run thins every 10
+    for mode, cfg in (("collapsed", GibbsConfig(niter=11_000, burnin=1_100)),
+                      ("dense", GibbsConfig(niter=1_100, g=10, burnin=110))):
+        g = Gibbs(x, residue="R0", cutoff=7.0, cfg=cfg, root=tmp)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        g.run(mode=mode, save=False)
+        secs = time.time() - t0
+        rate[mode] = secs / cfg.niter
+        g.process_gibbs(save=False)
+        lo, tau, hi = g.estimate_tau()
+        require(np.isfinite([lo, tau, hi]).all() and lo <= hi,
+                f"{mode}: tau {tau} CI [{lo}, {hi}]")
+        data = v[order] if mode == "collapsed" else x
+        aux = c[order] if mode == "collapsed" else None
+        dev = [None if a is None else torch.as_tensor(
+            a, dtype=torch.float32, device=g.device) for a in (data, aux)]
+        one = GibbsConfig(niter=100, g=100)
+        gen = g._generator(0)
+
+        def hundred():
+            run_chains(gen, dev[0], dev[1], one, mode,
+                       tiers=tiers if mode == "collapsed" else None)
+
+        wall, busy, acts, kernels = _device_busy(hundred)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hundred()
+            torch.cuda.synchronize()
+        top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+        print(f"phase 10c {mode}: {len(x)} events (V = {len(v)}, tiers "
+              f"{tiers}), K = {cfg.ncomp}, {cfg.niter} sweeps in {secs:.2f} "
+              f"s = {1e6 * rate[mode]:.1f} us a sweep; profiled 100 sweeps: "
+              f"{kernels / 100:.1f} kernels a sweep ({acts / 100:.1f} device "
+              f"activities), the card busy {1e4 * busy:.1f} us a sweep = "
+              f"{1e4 * busy / (1e6 * rate[mode]):.1%} of the unprofiled "
+              f"sweep ({100 * busy / wall:.1f}% of {wall:.3f} s under the "
+              f"profiler); most device time: " + "; ".join(
+                  f"{e.key[:60]} {e.device_time_total / 100:.1f} us a sweep "
+                  f"x{e.count / 100:.0f}" for e in top[:3])
+              + f"; tau {tau:.3f} CI [{lo:.3f}, {hi:.3f}]", flush=True)
+        if mode == "collapsed":
+            flo, _, fhi = flagship.tau
+            require(lo <= fhi and flo <= hi,
+                    f"collapsed CI [{lo}, {hi}] misses the flagship's "
+                    f"[{flo}, {fhi}]")
+    return rate["collapsed"]
+
+
+def protein_full_length(collapsed_s_per_sweep):
+    """Phase 10d: the port's ``validate.py`` part 3 at full length: 50
+    residues x 2 chains at ``GibbsConfig()`` (110,000 sweeps) on the 'cuda'
+    engine, then the batched post-processing; finite tau, split-R-hat.
+    The 4 residues of highest R-hat run again on the 'collapsed' engine at
+    110,000 sweeps, or at the largest multiple of 10,000 that fits the
+    budget at the bucket's own rate (10c's is printed beside it); both
+    engines' R-hat side by side."""
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.sampler.batch import bucket_residues, run_batch
+    from basicrta_torch.sampler.gibbs import Gibbs
+    from basicrta_torch.scripts.validate import full_protein, protein_times
+
+    times = protein_times(50)
+    cfg = GibbsConfig()
+    _reset_sweep_launches()
+    gibbs, t_samp, t_fin = full_protein(times, cfg, n_chains=2,
+                                        engine="cuda")
+    launches = _sweep_launches()
+    require(launches["segment"] + launches["segment_packed"] > 0
+            and launches["segment_torch"] + launches["segment_packed_torch"]
+            == 0, f"10d launches {launches}")
+    taus = np.asarray([g.tau for g in gibbs.values()], np.float64)
+    require(np.isfinite(taus).all(), "10d: non-finite tau")
+    rhat = {lab: g.diagnostics()["max_rhat"] for lab, g in gibbs.items()}
+    r = np.asarray(list(rhat.values()))
+    print(f"phase 10d cuda: {len(times)} residues x 2 chains x {cfg.niter} "
+          f"sweeps: sampling {t_samp:.2f} s, post-processing {t_fin:.2f} s; "
+          f"finite tau {int(np.isfinite(taus).all(1).sum())}/{len(taus)}; "
+          f"split-R-hat median {np.nanmedian(r):.4f}, 90th percentile "
+          f"{np.nanpercentile(r, 90):.4f}, > 1.1: {int((r > 1.1).sum())}, "
+          f"max {np.nanmax(r):.4f}; launches {json.dumps(launches)}",
+          flush=True)
+
+    # the 4 residues of highest R-hat x 2 chains as one bucket: the
+    # collapsed engine's time a sweep is its launches', whatever the lanes
+    top = sorted(rhat, key=lambda lab: -np.nan_to_num(rhat[lab], nan=9.0))[:4]
+    lanes = {f"{lab}#{ch}": times[lab] for lab in top for ch in range(2)}
+    width = max(len(np.unique(t)) for t in lanes.values())
+    (bucket,) = bucket_residues(lanes, floor=-(-width // 128) * 128)
+    # the bucket's own rate, from 1,000 sweeps, next to 10c's
+    t0 = time.time()
+    run_batch(bucket, GibbsConfig(niter=1000), engine="collapsed")
+    probe = (time.time() - t0) / 1000
+    sweeps = cfg.niter
+    if probe * sweeps > COLLAPSED_BUDGET_S:
+        sweeps = max(10_000, int(COLLAPSED_BUDGET_S / probe)
+                     // 10_000 * 10_000)
+    cfg_c = GibbsConfig(niter=sweeps, burnin=min(10_000, sweeps // 10))
+    t0 = time.time()
+    res = run_batch(bucket, cfg_c, engine="collapsed")
+    secs = time.time() - t0
+    rhat_c = {}
+    for lab in top:
+        rows = [res.names.index(f"{lab}#{ch}") for ch in range(2)]
+        g = Gibbs(times[lab], residue=lab, cutoff=7.0, cfg=cfg_c)
+        g.mcweights, g.mcrates = res.mcweights[rows], res.mcrates[rows]
+        rhat_c[lab] = g.diagnostics()["max_rhat"]
+    print(f"phase 10d collapsed: the 4 highest-R-hat residues x 2 chains as "
+          f"one bucket (V = {bucket.values.shape[1]}, tiers {bucket.tiers}) "
+          f"at {sweeps} sweeps (110,000 would take "
+          f"{collapsed_s_per_sweep * cfg.niter:.0f} s at 10c's rate, "
+          f"{probe * cfg.niter:.0f} s at the bucket's own from 1,000 sweeps; "
+          f"budget {COLLAPSED_BUDGET_S} s): {secs:.2f} s = "
+          f"{1e6 * secs / sweeps:.1f} us a sweep; split-R-hat cuda -> "
+          f"collapsed " + ", ".join(
+              f"{lab} ({len(times[lab])} events) {rhat[lab]:.4f} -> "
+              f"{rhat_c[lab]:.4f}" for lab in top), flush=True)
+
+
+def reference_phase(workload, flagship, tmp):
+    """Phase 10: 10a-10d, each with its seconds."""
+    t0 = time.time()
+    sbc_checks()
+    t1 = time.time()
+    reference_cross_check()
+    t2 = time.time()
+    rate = reference_chains(workload, flagship, tmp)
+    t3 = time.time()
+    protein_full_length(rate)
+    print(f"phase 10 seconds: 10a {t1 - t0:.1f}, 10b {t2 - t1:.1f}, 10c "
+          f"{t3 - t2:.1f}, 10d {time.time() - t3:.1f}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1490,10 +1783,11 @@ def main():
     print(f"phase 1 build: {time.time() - t0:.2f} s", flush=True)
 
     if len(sys.argv) > 1:
-        # python3 chip_smoke.py --only 5,8,9: the phases that stand alone,
-        # while iterating on them; prints no result line
+        # python3 chip_smoke.py --only 5,8,9,10: the phases that stand
+        # alone, while iterating on them; prints no result line
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"5", "8", "9"}, "--only takes 5, 8 and/or 9")
+        require(only <= {"5", "8", "9", "10"},
+                "--only takes 5, 8, 9 and/or 10")
         if "5" in only:
             prng_checks()
         with tempfile.TemporaryDirectory() as tmp:
@@ -1501,13 +1795,18 @@ def main():
                 work, label = contacts_file_to_tau(tmp)
             if "8" in only:
                 contacts_bilayer(tmp)
-            if "9" in only:
-                kinetics_file(work, label)
+            if only & {"9", "10"}:
                 from basicrta_torch.sampler.gibbs import Gibbs
-                g = Gibbs(make_workload()[0], residue="R0", cutoff=7.0,
+                workload = make_workload()
+                g = Gibbs(workload[0], residue="R0", cutoff=7.0,
                           root=tmp).run()
                 g.process_gibbs()
+                g.estimate_tau()
+            if "9" in only:
+                kinetics_file(work, label)
                 densities_full_size(g, work, label, tmp)
+            if "10" in only:
+                reference_phase(workload, g, tmp)
         print(f"partial run (phases 1, {sorted(only)}): no result")
         return 0
     workload = make_workload()
@@ -1524,6 +1823,7 @@ def main():
         contacts_bilayer(tmp)
         kinetics_file(work, label)
         densities_full_size(flagship, work, label, tmp)
+        reference_phase(workload, flagship, tmp)
     require("jax" not in sys.modules, "jax was imported")
     require("basicrta_tpu" not in sys.modules, "basicrta_tpu was imported")
 

@@ -557,3 +557,97 @@ def test_grid_stays_on_the_card_until_finish(dev):
         grids, _ = acc.finish()
     assert isinstance(grids, np.ndarray) and grids.shape == (3, 40, 40, 40)
     assert acc.n_rows == len(pos)
+
+
+def test_samplers_on_the_card(dev):
+    """torch's samplers on the card at the collapsed engine's edges: zero
+    counts and probabilities 0 and 1, totals exact up to the flagship's
+    multiplicities, and the prior's tiny gamma shapes clamped so that
+    ``log`` stays finite."""
+    from basicrta_torch.ops import random as tr
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = torch.tensor([0.0, 10.0, 10.0, 446605.0, 446605.0, 16.0], device=dev)
+    p = torch.tensor([0.5, 0.0, 1.0, 1e-30, 0.999999, 1.0], device=dev)
+    m = tr.binomial(n, p, gen).cpu().numpy()
+    assert m[0] == 0 and m[1] == 0 and m[2] == 10 and m[5] == 16
+    assert 0 <= m[3] <= 1 and 0 <= m[4] <= 446605
+    probs = torch.tensor(np.random.default_rng(0).dirichlet(np.ones(15), 3),
+                         dtype=torch.float32, device=dev)
+    counts = torch.tensor([0.0, 7.0, 446605.0], device=dev)
+    assert torch.equal(tr.multinomial(counts, probs, gen).sum(-1), counts)
+    small = counts.clamp_max(16)
+    assert torch.equal(tr.multinomial_small(small, probs, 16, gen).sum(-1),
+                       small)
+    for a in (1.0 / 15.0, 1e-3):
+        g = tr.gamma(torch.full((100_000,), a, device=dev), gen)
+        assert g.min().item() >= torch.finfo(torch.float32).tiny
+        assert torch.isfinite(torch.log(g)).all()
+    d = tr.dirichlet(torch.full((10_000, 15), 1.0 / 15.0, device=dev), gen)
+    assert torch.isfinite(torch.log(d)).all()
+
+
+def test_collapsed_engine_on_the_card(dev):
+    """The reference collapsed sweep on the card: totals exact, log w
+    finite and the softmax free of NaN through a run, and a resumed run
+    bitwise the uninterrupted one."""
+    from basicrta_torch.sampler import kernels
+    rng = np.random.default_rng(8)
+    times = {f"R{i}": np.repeat(np.arange(1, n) * 0.1,
+                                rng.integers(1, 40, n - 1))
+             for i, n in enumerate((300, 120, 700))}
+    b = batch.bucket_residues(times, ladder="pow2")[-1]
+    v = torch.as_tensor(b.values, dtype=torch.float32, device=dev)
+    c = torch.as_tensor(b.counts, dtype=torch.float32, device=dev)
+    cfg = GibbsConfig(ncomp=15, niter=200, g=10, seed=4)
+    st0 = kernels.init_mixture_params(15, device=dev)
+    st = kernels.MixtureState(st0.weights.repeat(b.size, 1),
+                              st0.rates.repeat(b.size, 1))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(50):
+        st, m = kernels.collapsed_sweep(gen, st, v, c, cfg,
+                                        return_counts=True, tiers=b.tiers)
+        assert torch.equal(m.sum(-1), c)
+        assert torch.isfinite(torch.log(st.weights)).all()
+        assert not torch.isnan(torch.softmax(
+            kernels._log_responsibilities(st, v), -1)).any()
+    full = batch.run_batch(b, cfg, segment_blocks=5, engine="collapsed")
+    assert full.mcweights.shape == (b.size, 20, 15)
+    assert np.isfinite(np.log(full.mcweights)).all()
+
+
+def test_collapsed_engine_resumes_bitwise_on_the_card(dev, tmp_path):
+    rng = np.random.default_rng(9)
+    times = {"A1": np.repeat(np.arange(1, 400) * 0.1,
+                             rng.integers(1, 30, 399))}
+    b = batch.bucket_residues(times, ladder="pow2")[0]
+    cfg = GibbsConfig(ncomp=5, niter=60, g=10, seed=9)
+    full = batch.run_batch(b, cfg, segment_blocks=2, engine="collapsed")
+    ckpt = str(tmp_path / "ck.npz")
+
+    class Stop(Exception):
+        pass
+
+    def bomb(seg_idx, state, _):
+        if seg_idx == 2:
+            raise Stop
+
+    with pytest.raises(Stop):
+        batch.run_batch(b, cfg, segment_blocks=2, checkpoint_path=ckpt,
+                        checkpoint_cb=bomb, engine="collapsed")
+    resumed = batch.run_batch(b, cfg, segment_blocks=2, checkpoint_path=ckpt,
+                              engine="collapsed")
+    np.testing.assert_array_equal(resumed.mcweights, full.mcweights)
+    np.testing.assert_array_equal(resumed.mcrates, full.mcrates)
+
+
+@pytest.mark.parametrize("mode", ["collapsed", "dense"])
+def test_gibbs_reference_modes_on_the_card(dev, mode):
+    from basicrta_torch.sampler.gibbs import Gibbs
+    x = np.repeat(np.arange(1, 300) * 0.1,
+                  np.random.default_rng(2).integers(1, 20, 299))
+    cfg = GibbsConfig(ncomp=4, niter=200, g=10, burnin=50, n_chains=2)
+    g = Gibbs(x, residue="A1", cutoff=7.0, cfg=cfg).run(mode=mode,
+                                                        save=False)
+    assert g.device.type == "cuda"
+    assert g.mcweights.shape == (2, 20, 4)
+    assert np.isfinite(np.log(g.mcweights)).all()

@@ -33,7 +33,8 @@ def test_every_module_imports_with_jax_blocked():
                 "scripts.contacts_reference", "scripts.workload",
                 "io.dx", "kinetics.density", "kinetics.mapper",
                 "kinetics.__main__", "plots", "protein.homologues", "gibbs",
-                "cluster"):
+                "cluster", "datafiles", "scripts.sbc", "scripts.validate",
+                "scripts.reference_sampler"):
         assert f"basicrta_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['basicrta_tpu'] = None\n"
