@@ -4,10 +4,11 @@ The subcommands of ``basicrta_tpu.cli``, from a trajectory file to tau and
 on to what users look at::
 
     basicrta-torch contacts --top t.gro --traj t.xtc --sel1 protein \
-        --sel2 "resname CHOL" --cutoff 7.0 [--device cuda|cpu]
+        --sel2 "resname CHOL" --cutoff 7.0 [--device cuda|cpu] \
+        [--ndevices N]
     basicrta-torch gibbs --contacts contacts_7.0.npz [--resid 313] \
         [--engine cuda|torch|collapsed] [--device cuda|cpu] \
-        [--mode batched|sequential]
+        [--mode batched|sequential] [--ndevices N] [--multihost]
     basicrta-torch status --cutoff 7.0
     basicrta-torch cluster --cutoff 7.0 [--engine cuda|torch] \
         [--prot b2ar] [--structure s.pdb] [--all-clusters] [--diagnostics]
@@ -61,7 +62,7 @@ def _cmd_contacts(args):
                        sel2=args.sel2, ts=args.dt)
     mapper = MapContacts(idx1, u.topology.resids[idx1], idx2,
                          u.topology.resids[idx2], cfg=cfg, meta=meta,
-                         device=args.device)
+                         device=args.device, n_devices=args.ndevices)
     t0 = time.time()
     nframes = u.n_frames
 
@@ -105,6 +106,10 @@ def _cmd_gibbs(args):
         print(f"\rgibbs: sweep {done}/{total} ({rate:,.0f} sweeps/s/lane)",
               end="", file=sys.stderr)
 
+    if args.multihost:
+        # joins the cluster before anything touches CUDA
+        from basicrta_torch.parallel.distributed import initialize
+        initialize()
     driver = ParallelGibbs(args.contacts, cfg=cfg)
     run_resids = args.resid
     rerun: set = set()
@@ -134,11 +139,24 @@ def _cmd_gibbs(args):
         run_resids = [int(lab[1:]) for lab in labels]
         print(f"rerunning {len(labels)} residues: {' '.join(labels)}",
               file=sys.stderr)
+    if args.multihost:
+        # every host runs the same command over its own residues with its
+        # own cards; after --rerun-missing, so the rerun set is split too
+        import numpy as np
+
+        from basicrta_torch.parallel.distributed import (
+            host_residue_partition)
+        if run_resids is None:
+            run_resids = np.unique(driver.events.sel1_resids)
+        run_resids = host_residue_partition([int(r) for r in run_resids])
+        if not run_resids:
+            print("no residues for this host", file=sys.stderr)
+            return
 
     def run():
         return driver.run(run_resids=run_resids, mode=args.mode,
                           engine=args.engine, device=args.device,
-                          progress_cb=progress)
+                          progress_cb=progress, n_devices=args.ndevices)
 
     if args.profile:
         results = _profiled(run, args.profile)
@@ -315,6 +333,9 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the distance kernel runs: the card "
                         "(default; raises without one) or the CPU")
+    c.add_argument("--ndevices", type=int, default=None,
+                   help="shard frame batches over this many devices "
+                        "(0: all visible cards; default: unsharded)")
     c.add_argument("--upload", choices=["auto", "f32", "u16"],
                    default="auto",
                    help="coordinate wire format for the device upload: "
@@ -356,6 +377,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default="batched",
                    help="every residue as lanes of one run (default), or "
                         "one residue after another")
+    g.add_argument("--ndevices", type=int, default=None,
+                   help="shard residue lanes over this many devices "
+                        "(0: all visible cards; default: unsharded)")
+    g.add_argument("--multihost", action="store_true",
+                   help="join the cluster's process group (torchrun's "
+                        "MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE) and "
+                        "sample this host's residue subset (run the same "
+                        "command on every host)")
     g.add_argument("--rerun-missing", action="store_true",
                    help="run only residues without results (failure-"
                         "detection sweep)")

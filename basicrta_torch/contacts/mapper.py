@@ -245,21 +245,39 @@ def _resolve_device(device) -> torch.device:
 
 class _HostCopy:
     """A device result on its way to the host: one pinned buffer, one
-    non-blocking copy, an event to wait on."""
+    non-blocking copy and an event to wait on for each of its frame
+    shards (a list of tensors, one a device, concatenated on arrival)."""
 
-    def __init__(self, t: torch.Tensor):
-        if t.device.type == "cpu":
-            self._host, self._event = t, None
-            return
-        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        self._host.copy_(t, non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record()
+    def __init__(self, t):
+        self._parts = []
+        for part in (t if isinstance(t, list) else [t]):
+            if part.device.type == "cpu":
+                self._parts.append((part, None))
+                continue
+            with torch.cuda.device(part.device):
+                host = torch.empty(part.shape, dtype=part.dtype,
+                                   pin_memory=True)
+                host.copy_(part, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            self._parts.append((host, event))
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        for _, event in self._parts:
+            if event is not None:
+                event.synchronize()
+        if len(self._parts) == 1:
+            return self._parts[0][0].numpy()
+        return np.concatenate([host.numpy() for host, _ in self._parts])
+
+
+@dataclasses.dataclass
+class _FrameShards:
+    """A batch prepared as frame shards: each shard's upload (as
+    ``MapContacts._prepare_on`` returns it) and its count of real frames
+    (the last shard's padding frames are cut off its results)."""
+    preps: list
+    real: list
 
 
 class MapContacts:
@@ -270,8 +288,14 @@ class MapContacts:
     :param resids1/resids2: per-atom residue ids for each group.
     :param cfg: ContactConfig (map cutoff default 10.0 A, contacts.py:51).
     :param device: where the distance kernel runs: the card by default
-        (raises without one), ``"cpu"`` on request. Frame sharding over
-        several cards is not ported yet.
+        (raises without one), ``"cpu"`` on request.
+    :param n_devices: shard each batch's frames over this many devices of
+        ``device``'s kind (0: every visible card; None: unsharded). The
+        frame axis is padded to the shard count with the last frame, every
+        shard runs the scan on its device, and the padding rows never
+        leave it: the rows are the unsharded scan's.
+    :param devices: an explicit list of the shards' devices in place of
+        ``n_devices``; it may repeat a device (several shards on one).
 
     After :meth:`run`, ``stats`` holds what the scan did: frames, batches,
     device passes by mode, exact-fit retries and dense fallbacks of the
@@ -284,8 +308,17 @@ class MapContacts:
     def __init__(self, indices1: np.ndarray, resids1: np.ndarray,
                  indices2: np.ndarray, resids2: np.ndarray,
                  cfg: ContactConfig = ContactConfig(),
-                 meta: Optional[ContactMeta] = None, device=None):
+                 meta: Optional[ContactMeta] = None, device=None,
+                 n_devices: Optional[int] = None, devices=None):
+        if devices is not None:
+            devices = [torch.device(d) for d in devices]
+            device = devices[0]
         self.device = _resolve_device(device)
+        self.devices = devices or [self.device]
+        if n_devices is not None:
+            from basicrta_torch.parallel.mesh import local_devices
+            self.devices = local_devices(n_devices or None, self.device)
+            self.device = self.devices[0]
         self.indices1 = np.asarray(indices1)
         self.indices2 = np.asarray(indices2)
         self.cfg = cfg
@@ -316,7 +349,8 @@ class MapContacts:
             len(self._host_layout) == len(self.indices1) + len(self.indices2)
             and np.array_equal(self._host_layout,
                                np.arange(len(self._host_layout))))
-        self._copy_stream = None
+        self._masks = {self.device: (self._mask1, self._mask2)}
+        self._copy_streams: dict = {}
         self.time_device = False
         self.stats: dict = {}
 
@@ -335,21 +369,30 @@ class MapContacts:
         A1 = self._R1 * self._P1
         p1 = pos[:, :A1].reshape(F, self._R1, self._P1, 3)
         p2 = pos[:, A1:].reshape(F, self._R2, self._P2, 3)
+        mask1, mask2 = self._masks_on(pos.device)
         if mode == "pruned":
             n, cidx, cdist = min_dist_pruned(
                 p1, p2, self.cfg.map_cutoff, box, cap_pairs=cap,
-                use_pbc=use_pbc, mask1=self._mask1, mask2=self._mask2,
+                use_pbc=use_pbc, mask1=mask1, mask2=mask2,
                 triclinic=triclinic)
             return self._fuse(n, cidx, cdist)
         dmin = min_dist_per_residue_pair(
-            p1, p2, box, use_pbc=use_pbc, mask1=self._mask1,
-            mask2=self._mask2, triclinic=triclinic)
+            p1, p2, box, use_pbc=use_pbc, mask1=mask1,
+            mask2=mask2, triclinic=triclinic)
         if mode == "dense_raw":
             # small system: the packed idx+dist buffers would be LARGER
             # than the dense matrix; transfer dmin itself
             return dmin
         n, cidx, cdist = compact_contacts(dmin, self.cfg.map_cutoff, cap)
         return dmin, self._fuse(n, cidx, cdist)
+
+    def _masks_on(self, device):
+        """The selections' slot masks on ``device`` (copied there once)."""
+        if device not in self._masks:
+            self._masks[device] = tuple(
+                None if m is None else m.to(device)
+                for m in (self._mask1, self._mask2))
+        return self._masks[device]
 
     @staticmethod
     def _fuse(n, cidx, cdist):
@@ -389,12 +432,13 @@ class MapContacts:
             return pairs > int(self.cfg.prefilter_auto_pairs)
         return bool(mode)
 
-    def _upload(self, arr: np.ndarray, dtype, take=None) -> torch.Tensor:
-        """A host array (its atoms gathered by ``take``) as a tensor on the
-        scan's device: through a pinned staging buffer and a non-blocking
-        copy on the current stream for the card."""
+    @staticmethod
+    def _upload(arr: np.ndarray, dtype, device, take=None) -> torch.Tensor:
+        """A host array (its atoms gathered by ``take``) as a tensor on
+        ``device``: through a pinned staging buffer and a non-blocking copy
+        on the current stream for the card."""
         arr = np.asarray(arr, dtype)
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             arr = arr[:, take] if take is not None else arr
             return torch.from_numpy(np.array(arr, dtype, order="C"))
         shape = (arr.shape if take is None
@@ -405,50 +449,100 @@ class MapContacts:
             np.copyto(stage.numpy(), arr)
         else:
             np.take(arr, take, axis=1, out=stage.numpy())
-        return stage.to(self.device, non_blocking=True)
+        return stage.to(device, non_blocking=True)
 
     def _prepare(self, batch: FrameBatch):
         """Host-side batch preparation: residue-padded layout, optional u16
-        quantization, and the upload on the copy stream. Runs on the
-        prefetch thread so the upload of batch i + 1 overlaps the device
-        compute of batch i."""
+        quantization, and the upload on the copy stream (of each frame
+        shard's device). Runs on the prefetch thread so the upload of
+        batch i + 1 overlaps the device compute of batch i."""
         t0 = time.perf_counter()
-        boxarr = batch.box
-        use_pbc = self.cfg.use_pbc and boxarr is not None
-        triclinic = use_pbc and boxarr.ndim == 3
+        positions, boxarr = batch.positions, batch.box
         quantized = self.cfg.upload_dtype == "u16"
         take = None if self._layout_is_identity else self._host_layout
-        on_card = self.device.type == "cuda"
-        if on_card and self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with (torch.cuda.stream(self._copy_stream) if on_card
+        scale = None
+        if quantized:
+            positions = np.asarray(positions)
+            if take is not None:
+                positions = positions[:, take, :]
+            take = None
+            # shared shifted-domain quantizer (contacts/quantize.py); one
+            # (F, 2, 3) buffer: row 0 the grid step, row 1 the offset; the
+            # device dequant is pos * step + lo
+            q, scale = quantize_u16(positions)
+            positions = q.view(np.int16)
+        n = len(self.devices)
+        if n == 1:
+            out = self._prepare_on(self.device, positions, boxarr, scale,
+                                   take)
+        else:
+            # pad the frame axis to the shard count with the last frame;
+            # shard s takes the s-th equal run of frames
+            F = len(positions)
+            pad = -F % n
+            per = (F + pad) // n
+
+            def padded(a):
+                if a is None or not pad:
+                    return a
+                a = np.asarray(a)
+                return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+
+            positions, boxarr, scale = map(padded, (positions, boxarr,
+                                                    scale))
+            shard = (lambda a, s: None if a is None  # noqa: E731
+                     else a[s * per:(s + 1) * per])
+            out = _FrameShards(
+                [self._prepare_on(dev, shard(positions, s),
+                                  shard(boxarr, s), shard(scale, s), take)
+                 for s, dev in enumerate(self.devices)],
+                [min(per, F - s * per) for s in range(n)])
+        self.stats["prepare_s"] += time.perf_counter() - t0
+        return out
+
+    def _prepare_on(self, device, positions, boxarr, scale, take):
+        """Upload one (shard of a) batch to ``device`` on its copy stream:
+        the positions (int16 u16 grid with its ``scale``, or f32 with its
+        atoms gathered by ``take``) and the box."""
+        use_pbc = self.cfg.use_pbc and boxarr is not None
+        triclinic = use_pbc and boxarr.ndim == 3
+        quantized = scale is not None
+        on_card = device.type == "cuda"
+        if on_card and device not in self._copy_streams:
+            self._copy_streams[device] = torch.cuda.Stream(device)
+        with (torch.cuda.stream(self._copy_streams[device]) if on_card
               else contextlib.nullcontext()):
-            scale = None
             if quantized:
-                positions = np.asarray(batch.positions)
-                if take is not None:
-                    positions = positions[:, take, :]
-                # shared shifted-domain quantizer (contacts/quantize.py);
-                # one (F, 2, 3) buffer: row 0 the grid step, row 1 the
-                # offset; the device dequant is pos * step + lo
-                q, scale_np = quantize_u16(positions)
-                pos = self._upload(q.view(np.int16), np.int16)
-                scale = self._upload(scale_np, np.float32)
+                pos = self._upload(positions, np.int16, device)
+                scale = self._upload(scale, np.float32, device)
             else:
-                pos = self._upload(batch.positions, np.float32, take)
-            box = self._upload(boxarr, np.float32) if use_pbc else None
+                pos = self._upload(positions, np.float32, device, take)
+            box = (self._upload(boxarr, np.float32, device) if use_pbc
+                   else None)
             ready = None
             if on_card:
                 ready = torch.cuda.Event()
                 ready.record()
-        self.stats["prepare_s"] += time.perf_counter() - t0
         return pos, box, scale, use_pbc, triclinic, quantized, ready
 
     def _exec_pass(self, prep, mode: str, cap: int):
+        """One device pass of a prepared batch; on frame shards, one pass a
+        shard, each on its device, its results cut to its real frames
+        ('dense' gives (dmin list, fused list))."""
+        self.stats["passes"][mode] += 1
+        if not isinstance(prep, _FrameShards):
+            return self._exec_on(prep, mode, cap)
+        outs = [self._exec_on(p, mode, cap) for p in prep.preps]
+        if mode == "dense":
+            return tuple([o[i][:n] for o, n in zip(outs, prep.real)]
+                         for i in (0, 1))
+        return [o[:n] for o, n in zip(outs, prep.real)]
+
+    def _exec_on(self, prep, mode: str, cap: int):
         pos, box, scale, use_pbc, triclinic, quantized, ready = prep
         events = None
         if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(pos.device)
             stream.wait_event(ready)
             for t in (pos, box, scale):
                 if t is not None:
@@ -456,13 +550,14 @@ class MapContacts:
             if self.time_device:
                 events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
-                events[0].record()
-        self.stats["passes"][mode] += 1
-        out = self._device_pass(pos, box, scale, mode=mode, cap=cap,
-                                use_pbc=use_pbc, triclinic=triclinic,
-                                quantized=quantized)
+                events[0].record(stream)
+        with (torch.cuda.device(pos.device) if ready is not None
+              else contextlib.nullcontext()):
+            out = self._device_pass(pos, box, scale, mode=mode, cap=cap,
+                                    use_pbc=use_pbc, triclinic=triclinic,
+                                    quantized=quantized)
         if events is not None:
-            events[1].record()
+            events[1].record(stream)
             self._timed.append(events)
         return out
 
@@ -659,7 +754,8 @@ class MapContacts:
                 collect(*pending)
         self.stats["cap"] = cap_state["cap"]
         if self._timed:
-            torch.cuda.synchronize(self.device)
+            for dev in set(self.devices):
+                torch.cuda.synchronize(dev)
             self.stats["device_s"] = sum(
                 a.elapsed_time(b) for a, b in self._timed) / 1e3
             self._timed = []

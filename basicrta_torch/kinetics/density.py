@@ -77,6 +77,51 @@ def accumulate(positions: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def accumulate_frames_sharded(positions, weights, mask, gmin, delta,
+                              nbins: Tuple[int, int, int], mesh,
+                              axis: str = "lanes",
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Frame-sharded :func:`accumulate` over the devices of ``mesh``'s
+    ``axis`` (``parallel.mesh``): the (F, ...) host arrays are padded to
+    the shard count with zero-mask rows, shard s's frames scatter into a
+    (K, nvox + 1) buffer on its device, and the shards' buffers are summed
+    into ``out`` (fresh zeros when None) on the first device, shard 0's
+    buffer being ``out`` itself. Every shard is launched before any is
+    summed. The sum's order differs from one scatter-add's, so the grids
+    equal the unsharded ones to f32 rounding (rtol 1e-5 of a grid's
+    largest value), not bit for bit."""
+    devices = mesh.axis_devices(axis)
+    n = len(devices)
+    F = len(positions)
+    pad = -F % n
+    positions, weights, mask = (np.asarray(a, np.float32)
+                                for a in (positions, weights, mask))
+    if pad:
+        positions = np.concatenate(
+            [positions, np.repeat(positions[-1:], pad, axis=0)])
+        weights = np.concatenate(
+            [weights, np.zeros((pad,) + weights.shape[1:], np.float32)])
+        mask = np.concatenate(
+            [mask, np.zeros((pad,) + mask.shape[1:], np.float32)])
+    per = (F + pad) // n
+    K = weights.shape[1]
+    nvox = int(np.prod(nbins))
+    home = devices[0]
+    if out is None:
+        out = torch.zeros((K, nvox + 1), dtype=torch.float32, device=home)
+    bufs = []
+    for s, dev in enumerate(devices):
+        sl = slice(s * per, (s + 1) * per)
+        bufs.append(accumulate(
+            _as_f32(positions[sl], dev), _as_f32(weights[sl], dev),
+            _as_f32(mask[sl], dev), gmin.to(dev), delta.to(dev), nbins,
+            out if s == 0 else None))
+    for buf in bufs[1:]:
+        out += buf.to(home)
+    return out
+
+
 def _as_f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
@@ -91,10 +136,19 @@ class GridAccumulator:
     materialising the full position table (the frame table can be an
     on-disk memmap of GB scale). ``grids`` (a view of the device buffer)
     and ``_spilled`` (f64, the out-of-grid weight of each component) stay
-    on the device across chunks; :meth:`finish` reads them back once."""
+    on the device across chunks; :meth:`finish` reads them back once.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) each chunk's frames are
+    split over the devices of its ``mesh_axis``
+    (:func:`accumulate_frames_sharded`) and the grids live on the axis'
+    first device."""
 
     def __init__(self, K: int, gridcenter, xdim=40.0, ydim=40.0,
-                 zdim=40.0, delta: float = 1.0, device=None):
+                 zdim=40.0, delta: float = 1.0, device=None, mesh=None,
+                 mesh_axis: str = "lanes"):
+        self._mesh, self._mesh_axis = mesh, mesh_axis
+        if mesh is not None:
+            device = mesh.axis_devices(mesh_axis)[0]
         self.device = resolve_device(device)
         center = np.asarray(gridcenter, np.float64)
         halfdim = np.asarray([xdim, ydim, zdim], np.float64) / 2
@@ -122,13 +176,22 @@ class GridAccumulator:
         n = len(positions)
         for lo in range(0, n, frame_chunk):
             sl = slice(lo, lo + frame_chunk)
-            pos = _as_f32(positions[sl], self.device)
-            w = _as_f32(weights[sl], self.device)
-            m = (torch.ones(pos.shape[:2], dtype=torch.float32,
-                            device=self.device) if mask is None
-                 else _as_f32(mask[sl], self.device))
-            accumulate(pos, w[:, None] if w.dim() == 1 else w, m,
-                       self._gmin, self._delta, self._nbins, self._buf)
+            if self._mesh is not None:
+                w = np.asarray(weights[sl], np.float32)
+                m = (np.ones(np.shape(positions[sl])[:2], np.float32)
+                     if mask is None else mask[sl])
+                accumulate_frames_sharded(
+                    positions[sl], w[:, None] if w.ndim == 1 else w, m,
+                    self._gmin, self._delta, self._nbins, self._mesh,
+                    self._mesh_axis, self._buf)
+            else:
+                pos = _as_f32(positions[sl], self.device)
+                w = _as_f32(weights[sl], self.device)
+                m = (torch.ones(pos.shape[:2], dtype=torch.float32,
+                                device=self.device) if mask is None
+                     else _as_f32(mask[sl], self.device))
+                accumulate(pos, w[:, None] if w.dim() == 1 else w, m,
+                           self._gmin, self._delta, self._nbins, self._buf)
             # the spill bin of each chunk is summed in f32 and carried in
             # f64, as the JAX package does
             self._spilled += self._buf[:, -1].double()

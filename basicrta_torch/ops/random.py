@@ -23,9 +23,21 @@ the JAX package: the prior's shape 1/K gives draws below f32 range, and
 
 from __future__ import annotations
 
+import hashlib
+
 import torch
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+def seeded_generator(device, *ids) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``ids`` (a seed,
+    then salts, segment or shard indices): each tuple its own stream."""
+    key = ":".join(str(int(i)) for i in ids).encode()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int.from_bytes(hashlib.sha256(key).digest()[:8],
+                                   "little") & 0x7FFFFFFFFFFFFFFF)
+    return gen
 
 
 def binomial(n, p, generator):

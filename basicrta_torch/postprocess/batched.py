@@ -111,8 +111,16 @@ def _gmm_bucket(prepared: dict, names: List[str], lmode: int, Mt_p: int,
             p["labels"] = labels[i, :len(p["data"])].astype(np.int32)
 
 
+def _shards(names: List[str], devices) -> List[Tuple[List[str], object]]:
+    """A bucket's residues split into one contiguous run a device (empty
+    runs dropped)."""
+    per = -(-len(names) // len(devices))
+    return [(names[i * per:(i + 1) * per], dev)
+            for i, dev in enumerate(devices) if names[i * per:(i + 1) * per]]
+
+
 def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
-                             chain=0, device=None
+                             chain=0, device=None, sharding=None
                              ) -> Dict[str, ClusterResult]:
     """Post-process many residues' chains in bucketed batches.
 
@@ -123,11 +131,18 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
         chain: chain index or 'pooled' (cf. Gibbs.process_gibbs).
         device: where the GMM and votes run (default the card; the CPU
             only when the caller asks for it).
+        sharding: a ``parallel.mesh.lane_sharding`` splits every bucket's
+            residues over the mesh's lane devices, one contiguous run a
+            device, taken in turn (the EM reads its convergence flags on
+            the host every iteration). Residues draw from generators of
+            their own, so the results are those of the unsharded run.
 
     Returns:
         {residue: ClusterResult} (sorted labels, pindicator, presorts).
     """
-    _, device = resolve_engine(None, device)
+    _, device = resolve_engine(None, device, sharding)
+    devices = ([device] if sharding is None
+               else sharding.mesh.axis_devices("lanes"))
     b = cfg.burnin_samples
     prepared = {}
     for name, (mcw, mcr, values, counts) in items.items():
@@ -150,7 +165,8 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
                _pad_size(len(p["data"])))
         buckets.setdefault(key, []).append(name)
     for (lmode, Mt_p, M_p), names in buckets.items():
-        _gmm_bucket(prepared, names, lmode, Mt_p, M_p, cfg, device)
+        for sub, dev in _shards(names, devices):
+            _gmm_bucket(prepared, sub, lmode, Mt_p, M_p, cfg, dev)
 
     vbuckets: Dict[tuple, list] = {}
     for name, p in prepared.items():
@@ -158,31 +174,39 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
                             []).append(name)
     results: Dict[str, ClusterResult] = {}
     for (V_p, (S, K)), names in vbuckets.items():
-        for part in _chunks(len(names), min(S * V_p * K, VOTE_CHUNK),
-                            _VOTE_BATCH):
-            sub = names[part]
-            Bk = len(sub)
-            Wb = np.empty((Bk, S, K), np.float32)
-            Rb = np.empty((Bk, S, K), np.float32)
-            Vb = np.ones((Bk, V_p), np.float32)
-            Cb = np.zeros((Bk, V_p), np.float32)
-            Lb = np.empty((Bk, S, K), np.int64)
-            for i, name in enumerate(sub):
-                p = prepared[name]
-                Wb[i], Rb[i] = p["W"], p["R"]
-                Vb[i, :len(p["values"])] = p["values"]
-                Cb[i, :len(p["counts"])] = p["counts"]
-                Lb[i] = _label_matrix(p["inds"], p["labels"], (S, K))
-            gens = [residue_generator(cfg, name, 1, device) for name in sub]
-            tens = [torch.as_tensor(x, device=device)
-                    for x in (Wb, Rb, Vb, Cb, Lb)]
-            votes = votes_bucket(*tens, gens).cpu().numpy()
-            for i, name in enumerate(sub):
-                p = prepared[name]
-                v = votes[i, :len(p["values"]), :p["lmode"]]
-                denom = v.sum(axis=1, keepdims=True)
-                res = ClusterResult(lmode=p["lmode"], labels=p["labels"],
-                                    inds=p["inds"], data=p["data"])
-                res.pindicator_values = v / np.maximum(denom, 1e-30)
-                results[name] = sort_labels_by_rate(res, cfg.noise_cutoff)
+        for shard, dev in _shards(names, devices):
+            _vote_shard(prepared, results, shard, V_p, S, K, cfg, dev)
     return {name: results[name] for name in items}
+
+
+def _vote_shard(prepared: dict, results: dict, names: List[str], V_p: int,
+                S: int, K: int, cfg: GibbsConfig, device) -> None:
+    """The vote pass of one bucket's residues on ``device``; fills
+    ``results``."""
+    for part in _chunks(len(names), min(S * V_p * K, VOTE_CHUNK),
+                        _VOTE_BATCH):
+        sub = names[part]
+        Bk = len(sub)
+        Wb = np.empty((Bk, S, K), np.float32)
+        Rb = np.empty((Bk, S, K), np.float32)
+        Vb = np.ones((Bk, V_p), np.float32)
+        Cb = np.zeros((Bk, V_p), np.float32)
+        Lb = np.empty((Bk, S, K), np.int64)
+        for i, name in enumerate(sub):
+            p = prepared[name]
+            Wb[i], Rb[i] = p["W"], p["R"]
+            Vb[i, :len(p["values"])] = p["values"]
+            Cb[i, :len(p["counts"])] = p["counts"]
+            Lb[i] = _label_matrix(p["inds"], p["labels"], (S, K))
+        gens = [residue_generator(cfg, name, 1, device) for name in sub]
+        tens = [torch.as_tensor(x, device=device)
+                for x in (Wb, Rb, Vb, Cb, Lb)]
+        votes = votes_bucket(*tens, gens).cpu().numpy()
+        for i, name in enumerate(sub):
+            p = prepared[name]
+            v = votes[i, :len(p["values"]), :p["lmode"]]
+            denom = v.sum(axis=1, keepdims=True)
+            res = ClusterResult(lmode=p["lmode"], labels=p["labels"],
+                                inds=p["inds"], data=p["data"])
+            res.pindicator_values = v / np.maximum(denom, 1e-30)
+            results[name] = sort_labels_by_rate(res, cfg.noise_cutoff)

@@ -29,19 +29,20 @@ from basicrta_torch.sampler.gibbs import Gibbs, run_residue
 
 
 def finish_batch(gibbs_by_label: Dict[str, Gibbs], chain=0,
-                 save: bool = True, device=None) -> None:
+                 save: bool = True, device=None, sharding=None) -> None:
     """Post-process every residue's samples in bucketed batches
     (:func:`~basicrta_torch.postprocess.batched.process_residues_batched`)
-    on ``device`` (default the card) and fill each Gibbs with its
-    clusters, parameters and tau; a residue whose clusters are all noise
-    records tau (0, 0, 0)."""
+    on ``device`` (default the card), or with the residues split over the
+    lane devices of ``sharding``, and fill each Gibbs with its clusters,
+    parameters and tau; a residue whose clusters are all noise records
+    tau (0, 0, 0)."""
     if not gibbs_by_label:
         return
     items = {lab: (g.mcweights, g.mcrates, g._values, g._counts)
              for lab, g in gibbs_by_label.items()}
     cfg = next(iter(gibbs_by_label.values())).cfg
     results = process_residues_batched(items, cfg, chain=chain,
-                                       device=device)
+                                       device=device, sharding=sharding)
     for lab, g in gibbs_by_label.items():
         g.processed = results[lab]
         g.parameters, g.intervals = estimate_params(g.processed)
@@ -125,7 +126,8 @@ class ParallelGibbs:
 
     def run(self, run_resids=None, mode: str = "batched",
             engine: Optional[str] = None, device=None,
-            progress_cb=None) -> Dict[str, Gibbs]:
+            progress_cb=None, n_devices: Optional[int] = None
+            ) -> Dict[str, Gibbs]:
         """Sample all residues (or ``run_resids``) and post-process them.
 
         ``mode='batched'`` runs every residue as lanes of ``engine`` (the
@@ -135,11 +137,25 @@ class ParallelGibbs:
         them in bucketed batches on the same device; ``mode='sequential'``
         runs one residue at a time through :func:`run_residue` (lower peak
         memory; each residue's result is that of ``Gibbs(...).run()``
-        alone)."""
+        alone).
+
+        ``n_devices`` splits the residue x chain lanes, and then the
+        post-processing, over a mesh of this process's devices of
+        ``device``'s kind (``parallel.mesh.make_mesh``): 0 takes every
+        visible card (the CPU once), n the first n (more than are visible
+        raises), None runs unsharded. On a multi-host cluster each host
+        runs its own residues on its own cards
+        (``parallel.distributed.host_residue_partition``). Sequential mode
+        runs unsharded."""
         if mode not in ("batched", "sequential"):
             raise ValueError(f"unknown mode {mode!r}; use 'batched' or "
                              "'sequential'")
         engine, device = resolve_engine(engine, device)
+        sharding = None
+        if n_devices is not None:
+            from basicrta_torch.parallel.mesh import lane_sharding, make_mesh
+            sharding = lane_sharding(make_mesh(n_lanes=n_devices or None,
+                                               device=device))
         all_resids = np.unique(self.events.sel1_resids)
         if run_resids is None:
             resids = all_resids
@@ -166,7 +182,8 @@ class ParallelGibbs:
                                 ".checkpoints")
         samples = run_residues(times, self.cfg, n_chains=self.cfg.n_chains,
                                checkpoint_dir=ckpt_dir, engine=engine,
-                               device=device, progress_cb=progress_cb)
+                               device=device, sharding=sharding,
+                               progress_cb=progress_cb)
         out: Dict[str, Gibbs] = {}
         for lab, (W, R) in samples.items():
             g = Gibbs(times[lab], residue=lab, cutoff=self.cutoff,
@@ -174,7 +191,7 @@ class ParallelGibbs:
             g.mcweights, g.mcrates = W, R
             g.device = device
             out[lab] = g
-        finish_batch(out, device=device)
+        finish_batch(out, device=device, sharding=sharding)
         return out
 
 

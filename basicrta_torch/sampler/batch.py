@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 from basicrta_torch.config import GibbsConfig
-from basicrta_torch.sampler.cuda_sweep import (pad_tiers_to_rows,
+from basicrta_torch.ops.random import seeded_generator
+from basicrta_torch.sampler.cuda_sweep import (_int32, pad_tiers_to_rows,
                                                packed_row_tiers, segment,
                                                segment_packed,
                                                segment_packed_torch,
@@ -529,14 +530,33 @@ def load_checkpoint(path: str, batch: ResidueBatch, cfg: GibbsConfig,
         return int(z["done_blocks"]), int(z["seg_idx"]), state, Ws, Rs
 
 
-def resolve_engine(engine: Optional[str] = None,
-                   device=None) -> Tuple[str, torch.device]:
+def resolve_engine(engine: Optional[str] = None, device=None,
+                   sharding=None) -> Tuple[str, torch.device]:
     """Engine and device of a run: 'cuda' launches the fused kernels and
     needs a CUDA device; 'torch' runs their plain versions on ``device``
     (default the CPU); 'collapsed' runs the reference collapsed sweep on
     ``device`` (default the card). With no engine named the run takes
     'cuda', or 'torch' when the caller gives a CPU ``device``: nothing
-    falls back to the CPU because no GPU was found."""
+    falls back to the CPU because no GPU was found. A ``sharding`` names
+    the devices itself (its mesh's kind is the device); the kernel engines
+    keep each lane's value axis whole and refuse a mesh with events > 1."""
+    if sharding is not None:
+        kinds = {d.type for d in sharding.mesh.devices.flat}
+        if len(kinds) != 1:
+            raise ValueError(f"a mesh of one device kind; got {kinds}")
+        mesh_device = sharding.mesh.devices[0, 0]
+        if device is not None and torch.device(device).type != \
+                mesh_device.type:
+            raise ValueError(f"device {device} and a mesh of "
+                             f"{mesh_device.type} devices disagree")
+        device = mesh_device
+        if engine in ("cuda", "torch") and \
+                sharding.mesh.shape["events"] > 1:
+            raise ValueError(
+                f"the {engine!r} engine keeps each lane's full value axis "
+                "in one kernel and cannot split it: use a mesh of events "
+                "= 1 (lane sharding), or engine='collapsed' for event "
+                "sharding")
     if engine is None:
         cpu = device is not None and torch.device(device).type == "cpu"
         engine = "torch" if cpu else "cuda"
@@ -567,33 +587,45 @@ def _segment(generator: torch.Generator, state: MixtureState,
     return _thinned_scan(sweep, generator, state, cfg.g, n_blocks)
 
 
-def _segment_generator(seed: int, salt: int, seg_idx: int,
-                       device: torch.device) -> torch.Generator:
-    """The collapsed engine's generator of one segment of one bucket."""
-    h = hashlib.sha256(f"{seed}:{salt}:{seg_idx}".encode()).digest()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int.from_bytes(h[:8], "little") & 0x7FFFFFFFFFFFFFFF)
-    return gen
+# lane shard s of a kernel engine seeds its launches with seed0 + s * this
+# (int32 wrap-around), as the JAX package's lane-sharded fused engine does:
+# the kernels' lane ids restart at 0 on every shard
+_SHARD_SEED_STRIDE = 0x3504F333
 
 
-def _kernel_layout(batch: ResidueBatch):
-    """What the kernel takes for a bucket: (values, counts, row tiers,
-    seg_id, slot_take, Bs). Mixed buckets are packed on the host into
-    physical (Bph, SL * 128) rows with the owning-slot tile ``seg_id``;
-    their kernel state is slot-ordered (Bs = Bph * pack slots, empty ones
-    included) and ``slot_take`` gathers the members back. Other buckets
-    pad their lanes to a multiple of ``pack``."""
+def _mesh_tag(sharding) -> str:
+    """The checkpoint tag of a mesh: sharded chains draw other streams, so
+    checkpoints never resume across mesh shapes (a one-shard mesh is the
+    unsharded run and shares its tag)."""
+    if sharding is None:
+        return ""
+    return ((f"-l{sharding.n_lanes}" if sharding.n_lanes > 1 else "")
+            + (f"-ev{sharding.n_events}" if sharding.n_events > 1 else ""))
+
+
+def _kernel_layout(batch: ResidueBatch, n_lanes: int = 1):
+    """What the kernel takes for a bucket split over ``n_lanes`` lane
+    shards: (values, counts, row tiers, seg_id, slot_take, Bs). Mixed
+    buckets are packed on the host into physical (Bph, SL * 128) rows with
+    the owning-slot tile ``seg_id``, their physical lanes padded with
+    zero-width rows to a multiple of ``n_lanes``; their kernel state is
+    slot-ordered (Bs = Bph * pack slots, empty ones included) and
+    ``slot_take`` gathers the members back. Other buckets pad their lanes
+    to a multiple of ``n_lanes * pack``. Lane shard s takes the s-th of
+    ``n_lanes`` equal runs of the rows."""
     B, V = batch.values.shape
     pack = batch.pack
     if batch.bounds is not None:
         widths = np.asarray(batch.bounds, np.int64)
+        Bph = -(-widths.shape[0] // n_lanes) * n_lanes
+        padded = np.zeros((Bph, pack), np.int64)
+        padded[:widths.shape[0]] = widths
         v_ph, c_ph, seg_id, slot_take = _pack_mixed(
             np.asarray(batch.values, np.float32),
-            np.asarray(batch.counts, np.float32), widths, batch.phys_rows)
-        Bph = widths.shape[0]
+            np.asarray(batch.counts, np.float32), padded, batch.phys_rows)
         return (v_ph.reshape(Bph, -1), c_ph.reshape(Bph, -1),
                 _mixed_row_tiers(c_ph), seg_id, slot_take, Bph * pack)
-    Bs = -(-B // pack) * pack
+    Bs = -(-B // (n_lanes * pack)) * (n_lanes * pack)
     values = np.ones((Bs, V), np.float32)
     values[:B] = batch.values
     counts = np.zeros((Bs, V), np.float32)
@@ -606,19 +638,39 @@ def _kernel_layout(batch: ResidueBatch):
     return values, counts, tiers, None, None, Bs
 
 
+def _on_stream(stream):
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One lane shard of a bucket: its rows of the operands and of the
+    chain state on its device, its stream and its kernel seed."""
+    index: int
+    device: torch.device
+    stream: Optional["torch.cuda.Stream"]
+    values: torch.Tensor
+    counts: torch.Tensor
+    seg_mask: Optional[torch.Tensor]
+    state: MixtureState
+    seed: int
+
+
 class _BucketRun:
     """One bucket's chains, advanced a segment at a time. :meth:`launch`
-    launches the next segment (on the bucket's CUDA stream, if it has
-    one) and returns without waiting; :meth:`collect` keeps the segment's
-    samples, writes the checkpoint and calls ``checkpoint_cb``. The chain
-    is the same for any segmentation and any interleaving with other
-    buckets: every sweep reseeds from the absolute sweep index and the
-    seed is salted by the bucket's names."""
+    launches the next segment of every lane shard (each on its stream, if
+    it has one) and returns without waiting; :meth:`collect` keeps the
+    segment's samples, writes the checkpoint and calls ``checkpoint_cb``.
+    The chain is the same for any segmentation and any interleaving with
+    other buckets: every sweep reseeds from the absolute sweep index and
+    the seed is salted by the bucket's names (and, on a mesh of n > 1 lane
+    shards, by the shard)."""
 
     def __init__(self, batch: ResidueBatch, cfg: GibbsConfig,
                  segment_blocks: int, checkpoint_path: Optional[str],
                  checkpoint_cb, engine: str, device: torch.device,
-                 stream=None):
+                 streams: bool = False, sharding=None):
         if checkpoint_path is not None and not checkpoint_path.endswith(
                 ".npz"):
             checkpoint_path += ".npz"
@@ -626,34 +678,42 @@ class _BucketRun:
         self.segment_blocks = segment_blocks
         self.checkpoint_path = checkpoint_path
         self.checkpoint_cb = checkpoint_cb
-        self.device, self.stream = device, stream
-        B = batch.size
+        B, V = batch.values.shape
         K = cfg.ncomp
         pack = batch.pack
+        n_lanes = 1 if sharding is None else sharding.n_lanes
+        n_events = 1 if sharding is None else sharding.n_events
+        devices = ([device] if sharding is None
+                   else sharding.mesh.axis_devices("lanes"))
         if engine == "collapsed":
-            # the logical (lanes, V) layout, as the JAX xla engine runs it
-            values_np, counts_np, tiers, seg_id, slot_np, Bs = (
-                batch.values, batch.counts, batch.tiers, None, None, B)
+            # the logical (lanes, V) layout, as the JAX xla engine runs it,
+            # lanes padded to the shard count
+            Bs = -(-B // n_lanes) * n_lanes
+            values_np = np.ones((Bs, V))
+            values_np[:B] = batch.values
+            counts_np = np.zeros((Bs, V))
+            counts_np[:B] = batch.counts
+            tiers, seg_id, slot_np = batch.tiers, None, None
+            if n_events > 1:
+                # deal sorted columns cyclically so one tier pair covers
+                # every event shard; the mesh step splits lanes and columns
+                # itself, so the bucket is one unit
+                from basicrta_torch.parallel.mesh import deal_columns
+                values_np, counts_np, tiers = deal_columns(
+                    values_np, counts_np, n_events, batch.tiers)
+                devices = devices[:1]
         else:
             values_np, counts_np, tiers, seg_id, slot_np, Bs = (
-                _kernel_layout(batch))
-        values = torch.as_tensor(values_np, dtype=torch.float32,
-                                 device=device)
-        counts = torch.as_tensor(counts_np, dtype=torch.float32,
-                                 device=device)
+                _kernel_layout(batch, n_lanes))
         mixed = seg_id is not None
-        if mixed:
-            seg_mask = torch.as_tensor(seg_id, device=device)
-            slot_take = torch.as_tensor(slot_np, device=device)
-        st0 = init_mixture_params(K, device=device)
-        self.state = MixtureState(st0.weights.repeat(Bs, 1),
-                                  st0.rates.repeat(Bs, 1))
+        st0 = init_mixture_params(K)
+        w, r = st0.weights.repeat(Bs, 1), st0.rates.repeat(Bs, 1)
         self.total_blocks = cfg.niter // cfg.g
         # salt the seed by the bucket's residue set (as the JAX package's
         # fused engine does), so buckets never share streams
-        bucket_salt = zlib.crc32(",".join(batch.names).encode()) & 0x7FFFFFFF
-        seed0 = (cfg.seed ^ bucket_salt) & 0x7FFFFFFF
-        self.ckpt_engine = f"basicrta_torch-{engine}"
+        salt = zlib.crc32(",".join(batch.names).encode()) & 0x7FFFFFFF
+        seed0 = (cfg.seed ^ salt) & 0x7FFFFFFF
+        self.ckpt_engine = f"basicrta_torch-{engine}{_mesh_tag(sharding)}"
         if pack > 1:
             self.ckpt_engine += f"-p{pack}"
         if mixed:
@@ -672,75 +732,115 @@ class _BucketRun:
                 self.done, self.seg_idx, ck, self.Ws, self.Rs = resumed
                 # checkpoints hold the B members' state: scatter it back
                 # into the kernel's slots (mixed) or re-pad the lanes
-                w = torch.ones((Bs, K), dtype=torch.float32, device=device)
-                r = torch.ones((Bs, K), dtype=torch.float32, device=device)
-                rows = slot_take if mixed else slice(0, B)
-                w[rows] = torch.as_tensor(ck.weights, dtype=torch.float32,
-                                          device=device)
-                r[rows] = torch.as_tensor(ck.rates, dtype=torch.float32,
-                                          device=device)
-                self.state = MixtureState(w, r)
-        if engine == "collapsed":
-            def step(seg_idx, st, nb):
-                gen = _segment_generator(cfg.seed, bucket_salt, seg_idx,
-                                         device)
-                return _segment(gen, st, values, counts, cfg, nb, tiers)
+                rows = slot_np if mixed else slice(0, B)
+                w, r = torch.ones((Bs, K)), torch.ones((Bs, K))
+                w[rows] = torch.as_tensor(ck.weights, dtype=torch.float32)
+                r[rows] = torch.as_tensor(ck.rates, dtype=torch.float32)
+        from basicrta_torch.parallel.mesh import split_rows
+        vrows = split_rows(len(values_np), len(devices))
+        srows = split_rows(Bs, len(devices))
+        self.shards = []
+        for s, dev in enumerate(devices):
+            stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                      and (streams or len(devices) > 1) else None)
+            vr = vrows[s]
+            self.shards.append(_Shard(
+                s, dev, stream,
+                torch.as_tensor(values_np[vr], dtype=torch.float32,
+                                device=dev),
+                torch.as_tensor(counts_np[vr], dtype=torch.float32,
+                                device=dev),
+                torch.as_tensor(seg_id[vr], device=dev) if mixed else None,
+                MixtureState(w[srows[s]].to(dev), r[srows[s]].to(dev)),
+                _int32(seed0 + s * _SHARD_SEED_STRIDE)))
+            if stream is not None:
+                # the operands were made on the current stream
+                stream.wait_stream(torch.cuda.current_stream(dev))
+
+        if engine == "collapsed" and n_events > 1:
+            from basicrta_torch.parallel.mesh import event_sharded_blocks
+
+            def step(sh, nb):
+                return event_sharded_blocks(sharding.mesh, cfg, nb, tiers)(
+                    (cfg.seed, salt, self.seg_idx), sh.state, sh.values,
+                    sh.counts)
+        elif engine == "collapsed":
+            def step(sh, nb):
+                # one generator a segment, and a shard on a mesh of n > 1
+                ids = (cfg.seed, salt, self.seg_idx) + (
+                    (sh.index,) if len(self.shards) > 1 else ())
+                return _segment(seeded_generator(sh.device, *ids), sh.state,
+                                sh.values, sh.counts, cfg, nb, tiers)
         elif pack > 1:
             fn = segment_packed if engine == "cuda" else segment_packed_torch
 
-            def step(seg_idx, st, nb):
-                return fn(seed0, self.done * cfg.g, st, values, counts, cfg,
-                          nb, tiers, pack, seg_mask if mixed else None)
+            def step(sh, nb):
+                return fn(sh.seed, self.done * cfg.g, sh.state, sh.values,
+                          sh.counts, cfg, nb, tiers, pack, sh.seg_mask)
         else:
             fn = segment if engine == "cuda" else segment_torch
 
-            def step(seg_idx, st, nb):
-                return fn(seed0, self.done * cfg.g, st, values, counts, cfg,
-                          nb, tiers)
+            def step(sh, nb):
+                return fn(sh.seed, self.done * cfg.g, sh.state, sh.values,
+                          sh.counts, cfg, nb, tiers)
 
-        def members(x):
-            """Kernel rows (slots or padded lanes) -> the B members."""
-            return x.index_select(0, slot_take) if mixed else x[:B]
+        self._step = step
+        self._members = ((lambda x: x[slot_np]) if mixed
+                         else (lambda x: x[:B]))
 
-        self._step, self._members = step, members
-        if stream is not None:
-            # the operands were made on the current stream
-            stream.wait_stream(torch.cuda.current_stream(device))
+    @property
+    def state(self) -> MixtureState:
+        """The chain state of every kernel row (slots or padded lanes), on
+        the first shard's device."""
+        if len(self.shards) == 1:
+            return self.shards[0].state
+        home = self.shards[0].device
+        return MixtureState(*(torch.cat([getattr(sh.state, f).to(home)
+                                         for sh in self.shards])
+                              for f in MixtureState._fields))
 
-    def _on_stream(self):
-        return (contextlib.nullcontext() if self.stream is None
-                else torch.cuda.stream(self.stream))
+    def _gather(self, parts) -> np.ndarray:
+        """Per-shard tensors of kernel rows -> the B members, on the
+        host."""
+        host = []
+        for sh, x in zip(self.shards, parts):
+            with _on_stream(sh.stream):
+                host.append(x.cpu().numpy())
+        return self._members(np.concatenate(host))
 
     @property
     def finished(self) -> bool:
         return self.done >= self.total_blocks
 
     def launch(self):
-        """Launch the next segment; nothing is copied to the host."""
+        """Launch the next segment of every shard; nothing is copied to
+        the host."""
         nb = min(self.segment_blocks, self.total_blocks - self.done)
-        with self._on_stream():
-            self.state, W, R = self._step(self.seg_idx, self.state, nb)
-            self._pending = (nb, self._members(W), self._members(R))
+        outs = []
+        for sh in self.shards:
+            with _on_stream(sh.stream):
+                sh.state, W, R = self._step(sh, nb)
+            outs.append((W, R))
+        self._pending = (nb, [W for W, _ in outs], [R for _, R in outs])
 
     def collect(self):
         """Take the launched segment in: samples, checkpoint, callback."""
         nb, W, R = self._pending
         self._pending = None
         keep = self.checkpoint_path is not None
-        with self._on_stream():
-            if keep or self.checkpoint_cb is not None:
-                W, R = W.cpu().numpy(), R.cpu().numpy()
-            self.Ws.append(W)
-            self.Rs.append(R)
-            self.done += nb
-            self.seg_idx += 1
-            if keep:
-                ck = MixtureState(
-                    self._members(self.state.weights).cpu().numpy(),
-                    self._members(self.state.rates).cpu().numpy())
-                save_checkpoint(self.checkpoint_path, self.batch, self.cfg,
-                                self.done, self.seg_idx, ck, self.Ws,
-                                self.Rs, self.ckpt_engine)
+        if keep or self.checkpoint_cb is not None:
+            W, R = self._gather(W), self._gather(R)
+        self.Ws.append(W)
+        self.Rs.append(R)
+        self.done += nb
+        self.seg_idx += 1
+        if keep:
+            ck = MixtureState(
+                self._gather([sh.state.weights for sh in self.shards]),
+                self._gather([sh.state.rates for sh in self.shards]))
+            save_checkpoint(self.checkpoint_path, self.batch, self.cfg,
+                            self.done, self.seg_idx, ck, self.Ws,
+                            self.Rs, self.ckpt_engine)
         if self.checkpoint_cb is not None:
             self.checkpoint_cb(self.seg_idx, self.state, (self.Ws, self.Rs))
 
@@ -749,23 +849,21 @@ class _BucketRun:
         if self.checkpoint_path is not None and os.path.exists(
                 self.checkpoint_path):
             os.remove(self.checkpoint_path)
-        with self._on_stream():
-            host = [np.asarray(x.cpu()) if torch.is_tensor(x) else x
-                    for x in self.Ws + self.Rs]
-        n = len(self.Ws)
-        return BatchResult(self.batch.names,
-                           np.concatenate(host[:n], axis=1),
-                           np.concatenate(host[n:], axis=1),
-                           self.batch.n_events)
+        W, R = ([x if isinstance(x, np.ndarray) else self._gather(x)
+                 for x in xs] for xs in (self.Ws, self.Rs))
+        return BatchResult(self.batch.names, np.concatenate(W, axis=1),
+                           np.concatenate(R, axis=1), self.batch.n_events)
 
 
-def _advance(runs: Sequence[_BucketRun], cfg: GibbsConfig, device,
+def _advance(runs: Sequence[_BucketRun], cfg: GibbsConfig,
              progress_cb) -> None:
     """Run every bucket to its end, a segment of all buckets at a time:
-    each round launches the segment of every unfinished bucket before it
-    takes any of them in, so buckets on streams of their own share the
-    card. ``progress_cb`` fires once a round, with the sweeps every
-    bucket has done."""
+    each round launches the segment of every unfinished bucket (and of
+    every lane shard) before it takes any of them in, so buckets and
+    shards on streams of their own share the cards. ``progress_cb`` fires
+    once a round, with the sweeps every bucket has done."""
+    cards = {sh.device for r in runs for sh in r.shards
+             if sh.device.type == "cuda"}
     while True:
         live = [r for r in runs if not r.finished]
         if not live:
@@ -775,8 +873,8 @@ def _advance(runs: Sequence[_BucketRun], cfg: GibbsConfig, device,
         for r in live:
             r.collect()
         if progress_cb is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            for dev in cards:
+                torch.cuda.synchronize(dev)
             progress_cb(min(r.done for r in runs) * cfg.g, cfg.niter)
 
 
@@ -784,7 +882,8 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
               segment_blocks: int = 100,
               checkpoint_path: Optional[str] = None,
               checkpoint_cb=None, progress_cb=None,
-              engine: Optional[str] = None, device=None) -> BatchResult:
+              engine: Optional[str] = None, device=None,
+              sharding=None) -> BatchResult:
     """Run full chains for one bucket of residues.
 
     Args:
@@ -799,12 +898,19 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
             plain versions) or 'collapsed' (the reference collapsed sweep;
             see :func:`resolve_engine`). On 'cuda' packed buckets run K3
             (``segment_packed``), the others K2 (``segment``).
-        device: where the lanes live; defaults from the engine.
+        device: where the lanes live; defaults from the engine, or from
+            the mesh.
+        sharding: a :func:`~basicrta_torch.parallel.mesh.lane_sharding`
+            splits the lanes over the mesh's lane shards, each launching
+            on its own device and stream with its own seed (a mesh of n > 1
+            shards gives other chains than the unsharded run; n = 1 gives
+            the same); an ``event_sharding`` with events > 1 also splits
+            the value columns, on the 'collapsed' engine only.
     """
-    engine, device = resolve_engine(engine, device)
+    engine, device = resolve_engine(engine, device, sharding)
     run = _BucketRun(batch, cfg, segment_blocks, checkpoint_path,
-                     checkpoint_cb, engine, device)
-    _advance([run], cfg, device, progress_cb)
+                     checkpoint_cb, engine, device, sharding=sharding)
+    _advance([run], cfg, progress_cb)
     return run.result()
 
 
@@ -813,23 +919,23 @@ def run_batches(batches: Sequence[ResidueBatch], cfg: GibbsConfig,
                 checkpoint_paths: Optional[Sequence[Optional[str]]] = None,
                 checkpoint_cb=None, progress_cb=None,
                 engine: Optional[str] = None,
-                device=None) -> List[BatchResult]:
+                device=None, sharding=None) -> List[BatchResult]:
     """Run full chains for several buckets, all on the device at once.
 
-    On the card each bucket launches on a CUDA stream of its own, and the
-    current segment of every bucket is launched before any bucket's samples
-    are copied to the host; checkpoints (``checkpoint_paths``, one a
-    bucket) and ``progress_cb`` follow the segment of all buckets. Every
-    bucket's result is bitwise that of :func:`run_batch` on it alone,
-    whose other arguments these are."""
-    engine, device = resolve_engine(engine, device)
+    On the card each bucket (and each of its lane shards) launches on a
+    CUDA stream of its own, and the current segment of every bucket is
+    launched before any bucket's samples are copied to the host;
+    checkpoints (``checkpoint_paths``, one a bucket) and ``progress_cb``
+    follow the segment of all buckets. Every bucket's result is bitwise
+    that of :func:`run_batch` on it alone, whose other arguments these
+    are."""
+    engine, device = resolve_engine(engine, device, sharding)
     if checkpoint_paths is None:
         checkpoint_paths = [None] * len(batches)
     runs = [_BucketRun(b, cfg, segment_blocks, path, checkpoint_cb, engine,
-                       device, torch.cuda.Stream(device)
-                       if device.type == "cuda" else None)
+                       device, streams=True, sharding=sharding)
             for b, path in zip(batches, checkpoint_paths)]
-    _advance(runs, cfg, device, progress_cb)
+    _advance(runs, cfg, progress_cb)
     return [run.result() for run in runs]
 
 
@@ -846,8 +952,9 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
     layout for 'cuda', the pow2 ladder for 'torch' and 'collapsed', as
     for the JAX package's 'xla'); None forces the
     production layout and 'pow2' the pow2 ladder. ``kwargs`` go to
-    :func:`run_batches` (engine, device, progress_cb, checkpoint_cb,
-    segment_blocks); ``checkpoint_dir`` holds one checkpoint a bucket.
+    :func:`run_batches` (engine, device, sharding, progress_cb,
+    checkpoint_cb, segment_blocks); ``checkpoint_dir`` holds one
+    checkpoint a bucket, named by the engine and the mesh.
 
     Returns:
         {residue: (mcweights (chains, S, K), mcrates (chains, S, K))}
@@ -857,16 +964,18 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
     expanded = {f"{name}#{ch}": t for name, t in nonempty.items()
                 for ch in range(n_chains)}
     out: Dict[str, list] = {name: [None] * n_chains for name in nonempty}
+    sharding = kwargs.get("sharding")
     engine, device = resolve_engine(kwargs.pop("engine", None),
-                                    kwargs.pop("device", None))
+                                    kwargs.pop("device", None), sharding)
     if ladder == "engine":
         ladder = None if engine == "cuda" else "pow2"
     batches = bucket_residues(expanded, ladder=ladder)
     paths = None
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
+        tag = f"basicrta_torch-{engine}{_mesh_tag(sharding)}"
         paths = [os.path.join(checkpoint_dir, "ckpt_" + _checkpoint_key(
-            b, cfg, f"basicrta_torch-{engine}") + ".npz") for b in batches]
+            b, cfg, tag) + ".npz") for b in batches]
     for res in run_batches(batches, cfg, checkpoint_paths=paths,
                            engine=engine, device=device, **kwargs):
         for i, lane_name in enumerate(res.names):

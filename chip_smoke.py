@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of basicrta_torch's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only 5,8,9,10]
+    python3 chip_smoke.py [--only 5,8,9,10,11]
 
 With no arguments every phase runs and the result lines are printed;
 ``--only`` runs phase 1 and the named phases that stand alone (5, 8, 9,
-10; 9 runs 8a and the flagship residue of phase 4 first, 10 the flagship)
-and prints no result.
+10, 11; 9 runs 8a and the flagship residue of phase 4 first, 10 the
+flagship) and prints no result.
 
 Phases (each raises on failure, so any failure exits non-zero):
 
@@ -101,6 +101,21 @@ Phases (each raises on failure, so any failure exits non-zero):
    full protein at 110,000 sweeps x 2 chains on the 'cuda' engine (sampling
    and post-processing seconds, finite tau, the split-R-hat distribution),
    then its 4 highest-R-hat residues on the 'collapsed' engine.
+11. sharding (``basicrta_torch.parallel``), on two shards of the one card
+   (or over every card when several are visible). 11a: protein-300 x 2
+   chains, K = 15, 10,000 sweeps, production layout:
+   ``ParallelGibbs.run(n_devices=0)`` must be bitwise the unsharded run
+   (samples and tau); then ``run_residues`` on a lane-sharded mesh and
+   sharded post-processing (every tau finite, 0 <= lo <= hi; K3 launched,
+   never a plain version), K3's first 2 sweeps on each shard of the
+   largest mixed bucket against its plain version at the shard's seed,
+   and the sampling seconds unsharded and sharded. 11b: 4 lanes of a
+   5,000-event residue on the 'collapsed' engine over a (2 lanes, 2
+   events) mesh, 2,000 sweeps, against the unsharded run in law. 11c:
+   256 membrane frames through ``MapContacts`` with their frames sharded
+   (rows equal to unsharded) and the CLI ``contacts --ndevices 0`` (equal
+   to no flag). 11d: ``GridAccumulator`` on a sharded mesh against one
+   device (rtol 1e-5 of a grid's largest voxel).
 
 Output: one JSON line of per-kernel results (each with its bound, and the
 time of one PyTorch call that computes the same function where there is
@@ -1752,6 +1767,337 @@ def reference_phase(workload, flagship, tmp):
     print(f"phase 10 seconds: 10a {t1 - t0:.1f}, 10b {t2 - t1:.1f}, 10c "
           f"{t3 - t2:.1f}, 10d {time.time() - t3:.1f}", flush=True)
 
+EVENT_SHARD_SWEEPS = 2000      # phase 11b
+SHARD_FRAMES = 256             # phase 11c
+
+
+def _shard_devices():
+    """(visible cards, phase 11's lane shards): every card when more than
+    one is visible, else two shards on the one card."""
+    import torch
+    from basicrta_torch.parallel.mesh import local_devices
+    cards = local_devices()
+    if len(cards) > 1:
+        print(f"phase 11 devices: {len(cards)} cards visible, the shards "
+              f"run over {[str(d) for d in cards]}", flush=True)
+        return cards, cards
+    print(f"phase 11 devices: only one card was visible "
+          f"({torch.cuda.get_device_name(0)}); two shards share it, so its "
+          f"times are those of one card, not a speed-up", flush=True)
+    return cards, cards * 2
+
+
+def sharded_protein(workload, tmp, devices):
+    """Phase 11a: protein-300 x 2 chains at K = 15 and 10,000 sweeps on the
+    production layout: ``ParallelGibbs.run(n_devices=0)`` against the
+    unsharded run, then ``run_residues`` on a mesh of ``devices`` with
+    sharded post-processing; K3 on each shard of the largest mixed bucket
+    against its plain version at that shard's seed."""
+    import zlib
+
+    import torch
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.contacts.records import ContactEvents, ContactMeta
+    from basicrta_torch.parallel.mesh import (lane_sharding, make_mesh,
+                                              split_rows)
+    from basicrta_torch.protein.driver import ParallelGibbs, finish_batch
+    from basicrta_torch.sampler import batch
+    from basicrta_torch.sampler import cuda_sweep as cs
+    from basicrta_torch.sampler.gibbs import Gibbs
+    from basicrta_torch.sampler.kernels import (MixtureState,
+                                                init_mixture_params)
+
+    cfg = GibbsConfig(niter=PROTEIN_SWEEPS, burnin=PROTEIN_SWEEPS // 10,
+                      n_chains=2)
+    resids = np.concatenate([np.full(len(t), i + 1, np.int32)
+                             for i, t in workload.items()])
+    durations = np.concatenate(list(workload.values()))
+    events = ContactEvents(resids, np.zeros_like(resids),
+                           np.zeros_like(durations), durations,
+                           ContactMeta(cutoff=7.0))
+    runs, secs = {}, {}
+    for n in (None, 0):
+        _reset_sweep_launches()
+        t0 = time.time()
+        runs[n] = ParallelGibbs(events, cfg, root=os.path.join(
+            tmp, f"devices_{n}")).run(engine="cuda", n_devices=n)
+        torch.cuda.synchronize()
+        secs[n] = time.time() - t0
+        launches = _sweep_launches()
+        require(launches["segment_packed"] > 0
+                and launches["segment_torch"] == 0
+                and launches["segment_packed_torch"] == 0,
+                f"n_devices={n}: the launches were {launches}")
+    require(sorted(runs[0]) == sorted(runs[None])
+            and len(runs[0]) == len(workload), "residue sets differ")
+    for lab, g in runs[None].items():
+        h = runs[0][lab]
+        require(np.array_equal(g.mcweights, h.mcweights)
+                and np.array_equal(g.mcrates, h.mcrates),
+                f"{lab}: n_devices=0 samples differ from the unsharded run")
+        require(g.tau == h.tau, f"{lab}: tau {h.tau} against {g.tau}")
+    print(f"phase 11a n_devices=0 == unsharded: {len(runs[0])} residues, "
+          f"samples and tau bitwise; ParallelGibbs.run {secs[None]:.2f} s "
+          f"unsharded, {secs[0]:.2f} s with n_devices=0", flush=True)
+
+    # the lanes over the mesh: run_residues, then sharded post-processing;
+    # run_batches is timed inside it (sampling alone) and its layout kept
+    sh = lane_sharding(make_mesh(n_lanes=len(devices), devices=devices))
+    seen = {}
+    original = batch.run_batches
+
+    def timed_run_batches(layout, *a, **k):
+        t0 = time.time()
+        out = original(layout, *a, **k)
+        seen["sampling_s"] = time.time() - t0
+        seen["layout"] = layout
+        return out
+
+    times = {f"X{i + 1}": t for i, t in workload.items()}
+    batch.run_batches = timed_run_batches
+    _reset_sweep_launches()
+    try:
+        t0 = time.time()
+        samples = batch.run_residues(times, cfg, n_chains=2, engine="cuda",
+                                     sharding=sh)
+        run_s = time.time() - t0
+    finally:
+        batch.run_batches = original
+    launches = _sweep_launches()
+    require(launches["segment_packed"] > 0
+            and launches["segment_torch"] == 0
+            and launches["segment_packed_torch"] == 0,
+            f"sharded run: the launches were {launches}")
+    gibbs = {}
+    for lab, (W, R) in samples.items():
+        g = Gibbs(times[lab], residue=lab, cutoff=7.0, cfg=cfg, root=tmp)
+        g.mcweights, g.mcrates = W, R
+        gibbs[lab] = g
+    t0 = time.time()
+    finish_batch(gibbs, save=False, sharding=sh)
+    post_s = time.time() - t0
+    taus = np.array([g.tau for g in gibbs.values()])     # (lo, tau, hi)
+    require(len(taus) == len(workload) and np.isfinite(taus).all(),
+            "sharded run: a tau is not finite")
+    require(np.all((0 <= taus[:, 0]) & (taus[:, 0] <= taus[:, 2])),
+            "sharded run: a CI with lo < 0 or lo > hi")
+    layout = seen["layout"]
+    t0 = time.time()
+    batch.run_batches(layout, cfg, engine="cuda")
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    t0 = time.time()
+    batch.run_batches(layout, cfg, engine="cuda", sharding=sh)
+    torch.cuda.synchronize()
+    shard_s = time.time() - t0
+    lane_sweeps = 2 * len(workload) * PROTEIN_SWEEPS
+    print(f"phase 11a sharded: {len(devices)} lane shards on "
+          f"{[str(d) for d in devices]}; run_residues {run_s:.2f} s "
+          f"(sampling {seen['sampling_s']:.2f} s with checkpoints off), "
+          f"sharded post-processing {post_s:.2f} s, {len(taus)} tau finite "
+          f"with 0 <= lo <= hi; launches {json.dumps(launches)}; sampling "
+          f"alone (run_batches, {PROTEIN_SWEEPS} sweeps) unsharded "
+          f"{plain_s:.3f} s = {lane_sweeps / plain_s:,.0f} lane-sweeps/s, "
+          f"{len(devices)} shards {shard_s:.3f} s = "
+          f"{lane_sweeps / shard_s:,.0f} lane-sweeps/s", flush=True)
+
+    # K3 on each shard of the largest mixed bucket, at the shard's seed
+    mixed = max((b for b in layout if b.bounds is not None),
+                key=lambda b: len(b.bounds))
+    n = len(devices)
+    vals, cnts, tiers, seg_id, slot, Bs = batch._kernel_layout(mixed, n)
+    salt = zlib.crc32(",".join(mixed.names).encode()) & 0x7FFFFFFF
+    seed0 = (cfg.seed ^ salt) & 0x7FFFFFFF
+    cfg2 = GibbsConfig(ncomp=cfg.ncomp, niter=2, g=1)
+    st0 = init_mixture_params(cfg.ncomp)
+    report = []
+    for s, (vr, sr) in enumerate(zip(split_rows(len(vals), n),
+                                     split_rows(Bs, n))):
+        dev = devices[s]
+        seed = cs._int32(seed0 + s * batch._SHARD_SEED_STRIDE)
+        rows_s = sr.stop - sr.start
+        st = MixtureState(st0.weights.repeat(rows_s, 1).to(dev),
+                          st0.rates.repeat(rows_s, 1).to(dev))
+        args = (torch.tensor(vals[vr], device=dev),
+                torch.tensor(cnts[vr], device=dev))
+        seg = torch.tensor(seg_id[vr], device=dev)
+        _, W, R = cs.segment_packed(seed, 0, st, *args, cfg2, 2, tiers,
+                                    mixed.pack, seg)
+        _, W2, R2 = cs.segment_packed_torch(seed, 0, st, *args, cfg2, 2,
+                                            tiers, mixed.pack, seg)
+        mine = torch.tensor(slot[(slot >= sr.start) & (slot < sr.stop)]
+                            - sr.start, device=dev)
+        agree = _agree(W, R, W2, R2, mine)
+        require(agree >= 0.95, f"shard {s}: K3 lanes agreeing {agree:.4f}")
+        report.append(dict(shard=s, seed=seed, phys_lanes=vr.stop - vr.start,
+                           members=len(mine), k3_agree=agree))
+    print(f"phase 11a K3 per shard of the largest mixed bucket (pack "
+          f"{mixed.pack}, {len(mixed.bounds)} physical lanes padded to "
+          f"{len(vals)}): {json.dumps(report)}", flush=True)
+
+
+def _dominant(res, burn):
+    out = []
+    for W, R in zip(res.mcweights, res.mcrates):
+        k = W[burn:].mean(0).argmax()
+        out.append((float(W[burn:, k].mean()), float(R[burn:, k].mean())))
+    return out
+
+
+def event_shards(cards):
+    """Phase 11b: 4 lanes of one ~5,000-event residue on the collapsed
+    engine over a (2 lanes, 2 events) mesh of ``cards`` (round robin),
+    held to the unsharded run in law: the dominant component's posterior
+    mean weight within 5% and its rate within 8%, each averaged over the
+    4 chains (one chain of a K = 4 mixture can split its dominant
+    component for a while, in either run)."""
+    import torch
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.parallel.mesh import event_sharding, make_mesh
+    from basicrta_torch.sampler import batch
+    from basicrta_torch.scripts.workload import discretize, simulate_hyperexp
+
+    devices = [cards[i % len(cards)] for i in range(4)]
+    x = discretize(simulate_hyperexp(5000, [0.8, 0.2], [2.0, 0.1],
+                                     np.random.default_rng(9)))
+    (b,) = batch.bucket_residues({f"L{i}": x for i in range(4)}, floor=256)
+    cfg = GibbsConfig(ncomp=4, niter=EVENT_SHARD_SWEEPS, g=10,
+                      burnin=EVENT_SHARD_SWEEPS // 4, seed=9)
+    mesh = make_mesh(n_lanes=2, n_events=2, devices=devices)
+    t0 = time.time()
+    res = batch.run_batch(b, cfg, engine="collapsed",
+                          sharding=event_sharding(mesh))
+    torch.cuda.synchronize()
+    sharded_s = time.time() - t0
+    t0 = time.time()
+    ref = batch.run_batch(b, cfg, engine="collapsed")
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    got, want = (_dominant(r, cfg.burnin_samples) for r in (res, ref))
+    (w, r), (wr, rr) = np.mean(got, axis=0), np.mean(want, axis=0)
+    require(abs(w - wr) <= 0.05 * wr and abs(r - rr) <= 0.08 * rr,
+            f"event-sharded dominant (w, rate) {(w, r)} against {(wr, rr)}")
+    print(f"phase 11b event shards: 4 lanes x {len(x)} events (V = "
+          f"{b.values.shape[1]}, {len(np.unique(x))} unique), "
+          f"{EVENT_SHARD_SWEEPS} collapsed sweeps; mesh 2 lanes x 2 events "
+          f"on {[str(d) for d in devices]} {sharded_s:.2f} s "
+          f"({1e6 * sharded_s / EVENT_SHARD_SWEEPS:.1f} us a sweep), "
+          f"unsharded {plain_s:.2f} s "
+          f"({1e6 * plain_s / EVENT_SHARD_SWEEPS:.1f} us); dominant (w, "
+          f"rate) sharded {json.dumps(got)} unsharded {json.dumps(want)}",
+          flush=True)
+
+
+def frame_shards(tmp, devices):
+    """Phase 11c: membrane frames through MapContacts with their frames
+    split over ``devices`` against the unsharded scan, then the CLI
+    ``contacts --ndevices 0`` against no flag."""
+    from basicrta_torch import cli
+    from basicrta_torch.config import ContactConfig
+    from basicrta_torch.contacts.mapper import MapContacts
+    from basicrta_torch.contacts.records import ContactRecords
+    from basicrta_torch.io.universe import Universe
+    from basicrta_torch.scripts.workload import (make_membrane_frames,
+                                                 write_membrane_files)
+
+    work = os.path.join(tmp, "frame_shards")
+    os.makedirs(work)
+    batches, r1, r2, A1 = make_membrane_frames(n_frames=SHARD_FRAMES,
+                                               batch=64)
+    gro, xtc = write_membrane_files(work, batches, r1, r2)
+    del batches
+    u = Universe(gro, xtc)
+    idx1, idx2 = u.select_atoms("protein"), u.select_atoms("resname CHOL")
+    res = u.topology.resids
+    B = 31                    # odd: the shards pad the frame axis
+    recs, secs = {}, {}
+    for name, devs in (("unsharded", None), ("sharded", devices)):
+        mc = MapContacts(idx1, res[idx1], idx2, res[idx2],
+                         cfg=ContactConfig(upload_dtype="f32",
+                                           frames_per_batch=B),
+                         devices=devs)
+        t0 = time.time()
+        recs[name] = mc.run(u.iter_batches(B))
+        secs[name] = time.time() - t0
+    a, b = recs["sharded"], recs["unsharded"]
+    require(len(b) > 0, "no contacts found")
+    for f in ("frames", "sel1_resids", "sel2_resids", "times", "min_dist"):
+        require(np.array_equal(getattr(a, f), getattr(b, f)),
+                f"frame-sharded {f} differ from the unsharded scan")
+    out = {}
+    cwd = os.getcwd()
+    try:
+        for flag in ([], ["--ndevices", "0"]):
+            d = os.path.join(work, "cli_" + ("".join(flag) or "plain"))
+            os.makedirs(d)
+            os.chdir(d)
+            with open("cli.log", "w") as log, \
+                    contextlib.redirect_stdout(log), \
+                    contextlib.redirect_stderr(log):
+                cli.main(["contacts", "--top", gro, "--traj", xtc, "--sel1",
+                          "protein", "--sel2", "resname CHOL", "--cutoff",
+                          "7.0"])
+            out[bool(flag)] = ContactRecords.load("contacts.npz")
+    finally:
+        os.chdir(cwd)
+    for f in ("frames", "sel1_resids", "sel2_resids", "times", "min_dist"):
+        require(np.array_equal(getattr(out[True], f),
+                               getattr(out[False], f)),
+                f"contacts --ndevices 0: {f} differ from no flag")
+    print(f"phase 11c frame shards: {SHARD_FRAMES} membrane frames in "
+          f"batches of {B}, {len(b)} rows; {len(devices)} shards on "
+          f"{[str(d) for d in devices]} == unsharded ({secs['sharded']:.2f} "
+          f"s against {secs['unsharded']:.2f} s); CLI contacts --ndevices 0 "
+          f"== no flag ({len(out[True])} rows)", flush=True)
+
+
+def density_shards(devices):
+    """Phase 11d: GridAccumulator with its frames split over ``devices``
+    against one device, at rtol 1e-5 of each grid's largest voxel."""
+    import torch
+    from basicrta_torch.kinetics.density import GridAccumulator
+    from basicrta_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(13)
+    F, A, K = 100_001, 50, 7
+    pos = rng.normal(0.0, 6.0, (F, A, 3)).astype(np.float32)
+    w = rng.dirichlet(np.ones(K), F).astype(np.float32)
+    mask = (rng.random((F, A)) < 0.9).astype(np.float32)
+    accs, secs = {}, {}
+    for name, mesh in (("one device", None), ("sharded", make_mesh(
+            n_lanes=len(devices), devices=devices))):
+        acc = GridAccumulator(K, [0.0, 0.0, 0.0], mesh=mesh)
+        t0 = time.time()
+        acc.add(pos, w, mask, frame_chunk=50_000)
+        accs[name] = acc.finish()[0]
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t0
+    a, b = accs["sharded"], accs["one device"]
+    gap = np.abs(a - b).max(axis=(1, 2, 3))
+    peak = np.abs(b).max(axis=(1, 2, 3))
+    require(b.sum() > 0 and (gap <= 1e-5 * peak).all(),
+            f"sharded grids differ: {gap} against {peak}")
+    print(f"phase 11d densities: {F} rows x {A} atoms, K = {K}, 40 A grid; "
+          f"{len(devices)} shards == one device (largest gap "
+          f"{float((gap / peak).max()):.3g} of a grid's peak); "
+          f"{secs['sharded']:.2f} s sharded, {secs['one device']:.2f} s on "
+          f"one device (host upload included)", flush=True)
+
+
+def sharded_phase(workload, tmp):
+    """Phase 11: 11a-11d, each with its seconds."""
+    cards, devices = _shard_devices()
+    t0 = time.time()
+    sharded_protein(workload, tmp, devices)
+    t1 = time.time()
+    event_shards(cards)
+    t2 = time.time()
+    frame_shards(tmp, devices)
+    t3 = time.time()
+    density_shards(devices)
+    print(f"phase 11 seconds: 11a {t1 - t0:.1f}, 11b {t2 - t1:.1f}, 11c "
+          f"{t3 - t2:.1f}, 11d {time.time() - t3:.1f}", flush=True)
+
 
 def main():
     import torch
@@ -1786,8 +2132,8 @@ def main():
         # python3 chip_smoke.py --only 5,8,9,10: the phases that stand
         # alone, while iterating on them; prints no result line
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"5", "8", "9", "10"},
-                "--only takes 5, 8, 9 and/or 10")
+        require(only <= {"5", "8", "9", "10", "11"},
+                "--only takes 5, 8, 9, 10 and/or 11")
         if "5" in only:
             prng_checks()
         with tempfile.TemporaryDirectory() as tmp:
@@ -1795,9 +2141,10 @@ def main():
                 work, label = contacts_file_to_tau(tmp)
             if "8" in only:
                 contacts_bilayer(tmp)
+            if only & {"9", "10", "11"}:
+                workload = make_workload()
             if only & {"9", "10"}:
                 from basicrta_torch.sampler.gibbs import Gibbs
-                workload = make_workload()
                 g = Gibbs(workload[0], residue="R0", cutoff=7.0,
                           root=tmp).run()
                 g.process_gibbs()
@@ -1807,6 +2154,8 @@ def main():
                 densities_full_size(g, work, label, tmp)
             if "10" in only:
                 reference_phase(workload, g, tmp)
+            if "11" in only:
+                sharded_phase(workload, tmp)
         print(f"partial run (phases 1, {sorted(only)}): no result")
         return 0
     workload = make_workload()
@@ -1824,6 +2173,7 @@ def main():
         kinetics_file(work, label)
         densities_full_size(flagship, work, label, tmp)
         reference_phase(workload, flagship, tmp)
+        sharded_phase(workload, tmp)
     require("jax" not in sys.modules, "jax was imported")
     require("basicrta_tpu" not in sys.modules, "basicrta_tpu was imported")
 

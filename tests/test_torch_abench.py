@@ -9,6 +9,18 @@ import torch
 from basicrta_torch.scripts import abench
 from basicrta_torch.scripts.workload import make_workload
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Many small eager steps: with torch's intra-op threads, each step
+    waits for threads that the suite's other workers keep busy. One
+    thread here, restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARGS = ["--device", "cpu", "--residues", "2", "--sweeps", "200", "--reps",
         "1", "--flagship-events", "3000", "--ncomp", "4"]
 

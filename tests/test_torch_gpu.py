@@ -651,3 +651,42 @@ def test_gibbs_reference_modes_on_the_card(dev, mode):
     assert g.device.type == "cuda"
     assert g.mcweights.shape == (2, 20, 4)
     assert np.isfinite(np.log(g.mcweights)).all()
+
+
+def test_lane_shards_on_one_card(dev):
+    """Two lane shards on one card (a mesh that names it twice): K3 per
+    shard against the plain engine's sharded run on the same card, a
+    one-shard mesh bitwise the unsharded run, and the frame-sharded
+    densities equal to one device's."""
+    from basicrta_torch.kinetics.density import GridAccumulator
+    from basicrta_torch.parallel.mesh import lane_sharding, make_mesh
+    rng = np.random.default_rng(9)
+    times = {f"R{i}#{c}": np.repeat(np.arange(1, n) * 0.1,
+                                    rng.integers(1, 40, n - 1))
+             for i, n in enumerate(rng.integers(20, 400, 24))
+             for c in range(2)}
+    b = next(x for x in batch.bucket_residues(times) if x.bounds is not None)
+    cfg = GibbsConfig(ncomp=6, niter=20, g=10, seed=3)
+    two = lane_sharding(make_mesh(n_lanes=2, devices=[dev, dev]))
+    cuda_sweep.segment_packed.launches = 0
+    got = batch.run_batch(b, cfg, engine="cuda", sharding=two)
+    assert cuda_sweep.segment_packed.launches == 2
+    plain = batch.run_batch(b, cfg, engine="torch", sharding=two)
+    ok = [np.allclose(got.mcweights[i], plain.mcweights[i], rtol=1e-4)
+          and np.allclose(got.mcrates[i], plain.mcrates[i], rtol=1e-4)
+          for i in range(b.size)]
+    assert np.mean(ok) >= 0.95
+    one = batch.run_batch(b, cfg, engine="cuda",
+                          sharding=lane_sharding(make_mesh(n_lanes=1)))
+    ref = batch.run_batch(b, cfg, engine="cuda")
+    np.testing.assert_array_equal(one.mcweights, ref.mcweights)
+    pos = rng.normal(0.0, 6.0, (1001, 20, 3)).astype(np.float32)
+    w = rng.random((1001, 3)).astype(np.float32)
+    grids = []
+    for mesh in (None, make_mesh(n_lanes=2, devices=[dev, dev])):
+        acc = GridAccumulator(3, [0.0, 0.0, 0.0], mesh=mesh)
+        acc.add(pos, w, frame_chunk=300)
+        grids.append(acc.finish()[0])
+    peak = np.abs(grids[0]).max(axis=(1, 2, 3))
+    assert (np.abs(grids[1] - grids[0]).max(axis=(1, 2, 3))
+            <= 1e-5 * peak).all()

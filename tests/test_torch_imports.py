@@ -34,7 +34,8 @@ def test_every_module_imports_with_jax_blocked():
                 "io.dx", "kinetics.density", "kinetics.mapper",
                 "kinetics.__main__", "plots", "protein.homologues", "gibbs",
                 "cluster", "datafiles", "scripts.sbc", "scripts.validate",
-                "scripts.reference_sampler"):
+                "scripts.reference_sampler", "parallel", "parallel.mesh",
+                "parallel.distributed"):
         assert f"basicrta_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['basicrta_tpu'] = None\n"

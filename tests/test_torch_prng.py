@@ -10,8 +10,21 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from basicrta_torch.scripts import device_prng as dp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Many small eager steps: with torch's intra-op threads, each step
+    waits for threads that the suite's other workers keep busy. One
+    thread here, restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -15,6 +15,18 @@ import torch
 from basicrta_torch.config import GibbsConfig
 from basicrta_torch.sampler import batch, cuda_sweep as cs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Many small eager steps: with torch's intra-op threads, each step
+    waits for threads that the suite's other workers keep busy. One
+    thread here, restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = GibbsConfig(ncomp=3, niter=30, g=10, seed=4)
 
 
