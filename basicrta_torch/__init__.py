@@ -18,6 +18,6 @@ and never ``jax``; on the CPU every kernel runs its plain PyTorch version.
 
 __version__ = "0.1.0"
 
-from basicrta_torch.config import GibbsConfig
+from basicrta_torch.config import ContactConfig, GibbsConfig
 
-__all__ = ["GibbsConfig", "__version__"]
+__all__ = ["GibbsConfig", "ContactConfig", "__version__"]

@@ -287,6 +287,9 @@ def _cmd_kinetics(args):
     from basicrta_torch.sampler.gibbs import Gibbs
 
     g = Gibbs.load(args.gibbs)
+    # a result without processed state (a reference .pkl) is
+    # post-processed where the densities accumulate
+    g.device = args.device
     mk = MapKinetics(g, args.contacts, traj_format=args.traj_format,
                      device=args.device)
     for w in mk.create_traj(top_n=args.top_n):

@@ -1,7 +1,7 @@
 """Sampler and contact-map configuration.
 
-The port's own copies of the JAX package's ``GibbsConfig`` and
-``ContactConfig``: the same fields, defaults, derived properties and JSON
+The port's own copies of the JAX package's ``GibbsConfig``,
+``ContactConfig`` and ``DensityConfig``: the same fields, defaults, derived properties and JSON
 form, so the ``cfg`` JSON stored in NPZ artifacts is byte-identical in
 both packages and an artifact written by either loads in the other.
 """
@@ -12,7 +12,7 @@ import dataclasses
 import json
 from typing import Optional
 
-__all__ = ["GibbsConfig", "ContactConfig"]
+__all__ = ["GibbsConfig", "ContactConfig", "DensityConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,4 +115,23 @@ class ContactConfig:
 
     @classmethod
     def from_json(cls, s: str) -> "ContactConfig":
+        return cls(**json.loads(s))
+
+
+@dataclasses.dataclass(frozen=True)
+class DensityConfig:
+    """Weighted-density grid configuration: a 40 x 40 x 40 A box at 1 A
+    per voxel (reference kinetics.py:167-168, wdensity.py:183)."""
+
+    xdim: float = 40.0
+    ydim: float = 40.0
+    zdim: float = 40.0
+    delta: float = 1.0
+    padding: float = 2.0
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @classmethod
+    def from_json(cls, s: str) -> "DensityConfig":
         return cls(**json.loads(s))

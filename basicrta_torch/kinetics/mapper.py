@@ -63,10 +63,9 @@ class MapKinetics:
         self.device = resolve_device(device)
         self.gibbs = gibbs
         if isinstance(contacts, str) and contacts.endswith(".pkl"):
-            raise NotImplementedError(
-                "reference pickles (.pkl) load through io/legacy.py, which "
-                "the port has not taken yet (ROADMAP queue 1 item 8); "
-                "convert the event table with basicrta_tpu first")
+            # the reference package's pickle (io/legacy.py)
+            from basicrta_torch.io.legacy import load_reference_contacts
+            contacts = load_reference_contacts(contacts)
         if isinstance(contacts, str):
             contacts = ContactEvents.load(contacts)
         if not isinstance(contacts, ContactEvents):

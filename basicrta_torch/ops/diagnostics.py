@@ -11,7 +11,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["split_rhat", "effective_sample_size", "convergence_report"]
+__all__ = ["split_rhat", "effective_sample_size", "convergence_report",
+           "chain_report"]
 
 
 def _split_chains(x: np.ndarray) -> np.ndarray:
@@ -104,4 +105,18 @@ def convergence_report(mcweights: np.ndarray, mcrates: np.ndarray,
         "min_ess": float(np.nanmin([ew.min(), er.min()])),
         "rhat_weights": rw, "rhat_rates": rr,
         "ess_weights": ew, "ess_rates": er,
+    }
+
+
+def chain_report(mcweights: np.ndarray, mcrates: np.ndarray,
+                 burnin_samples: int = 0) -> dict:
+    """Per-component split-R̂ and bulk ESS of a residue's (chains, S, K)
+    samples after burn-in (the rates on their own scale)."""
+    W = np.asarray(mcweights)[:, burnin_samples:]
+    R = np.asarray(mcrates)[:, burnin_samples:]
+    return {
+        "rhat_weights": split_rhat(W),
+        "rhat_rates": split_rhat(R),
+        "ess_weights": effective_sample_size(W),
+        "ess_rates": effective_sample_size(R),
     }

@@ -24,8 +24,9 @@ components than the config names).
 
 from __future__ import annotations
 
+import time
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,8 +120,29 @@ def _shards(names: List[str], devices) -> List[Tuple[List[str], object]]:
             for i, dev in enumerate(devices) if names[i * per:(i + 1) * per]]
 
 
+class _Laps:
+    """Wall seconds a stage, summed into ``timings`` under the JAX
+    package's keys; with no ``timings`` it does nothing, and nothing
+    waits on the device."""
+
+    def __init__(self, timings: Optional[dict], devices):
+        self.timings = timings
+        self.cards = [d for d in devices if torch.device(d).type == "cuda"]
+        self.mark = time.perf_counter()
+
+    def __call__(self, key: str) -> None:
+        if self.timings is None:
+            return
+        for dev in self.cards:
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        self.timings[key] = self.timings.get(key, 0.0) + (now - self.mark)
+        self.mark = now
+
+
 def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
-                             chain=0, device=None, sharding=None
+                             chain=0, device=None, sharding=None,
+                             timings: Optional[dict] = None
                              ) -> Dict[str, ClusterResult]:
     """Post-process many residues' chains in bucketed batches.
 
@@ -136,6 +158,10 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
             device, taken in turn (the EM reads its convergence flags on
             the host every iteration). Residues draw from generators of
             their own, so the results are those of the unsharded run.
+        timings: optional dict; filled with each stage's wall seconds
+            (``host_prep_s``, ``gmm_s``, ``votes_s``, ``finish_s``; the
+            device synchronized at each stage's end only when it is
+            given), the split ``scripts/postbench.py`` prints.
 
     Returns:
         {residue: ClusterResult} (sorted labels, pindicator, presorts).
@@ -143,6 +169,7 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
     _, device = resolve_engine(None, device, sharding)
     devices = ([device] if sharding is None
                else sharding.mesh.axis_devices("lanes"))
+    lap = _Laps(timings, devices)
     b = cfg.burnin_samples
     prepared = {}
     for name, (mcw, mcr, values, counts) in items.items():
@@ -164,9 +191,11 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
         key = (p["lmode"], _pad_size(len(p["train"])),
                _pad_size(len(p["data"])))
         buckets.setdefault(key, []).append(name)
+    lap("host_prep_s")
     for (lmode, Mt_p, M_p), names in buckets.items():
         for sub, dev in _shards(names, devices):
             _gmm_bucket(prepared, sub, lmode, Mt_p, M_p, cfg, dev)
+    lap("gmm_s")
 
     vbuckets: Dict[tuple, list] = {}
     for name, p in prepared.items():
@@ -175,14 +204,14 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
     results: Dict[str, ClusterResult] = {}
     for (V_p, (S, K)), names in vbuckets.items():
         for shard, dev in _shards(names, devices):
-            _vote_shard(prepared, results, shard, V_p, S, K, cfg, dev)
+            _vote_shard(prepared, results, shard, V_p, S, K, cfg, dev, lap)
     return {name: results[name] for name in items}
 
 
 def _vote_shard(prepared: dict, results: dict, names: List[str], V_p: int,
-                S: int, K: int, cfg: GibbsConfig, device) -> None:
+                S: int, K: int, cfg: GibbsConfig, device, lap) -> None:
     """The vote pass of one bucket's residues on ``device``; fills
-    ``results``."""
+    ``results``, lapping the votes and the host's finish apart."""
     for part in _chunks(len(names), min(S * V_p * K, VOTE_CHUNK),
                         _VOTE_BATCH):
         sub = names[part]
@@ -202,6 +231,7 @@ def _vote_shard(prepared: dict, results: dict, names: List[str], V_p: int,
         tens = [torch.as_tensor(x, device=device)
                 for x in (Wb, Rb, Vb, Cb, Lb)]
         votes = votes_bucket(*tens, gens).cpu().numpy()
+        lap("votes_s")
         for i, name in enumerate(sub):
             p = prepared[name]
             v = votes[i, :len(p["values"]), :p["lmode"]]
@@ -210,3 +240,4 @@ def _vote_shard(prepared: dict, results: dict, names: List[str], V_p: int,
                                 inds=p["inds"], data=p["data"])
             res.pindicator_values = v / np.maximum(denom, 1e-30)
             results[name] = sort_labels_by_rate(res, cfg.noise_cutoff)
+        lap("finish_s")

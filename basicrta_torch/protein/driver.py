@@ -99,8 +99,9 @@ def residue_labels_for(events: ContactEvents,
 class ParallelGibbs:
     """Run Gibbs samplers for every sel1 residue in a contact-event table.
 
-    :param contacts: path to a ``contacts_{cutoff}.npz`` event table or a
-        ContactEvents instance.
+    :param contacts: path to a ``contacts_{cutoff}.npz`` event table, the
+        reference package's ``contacts_{cutoff}.pkl``, or a ContactEvents
+        instance.
     """
 
     def __init__(self, contacts: Union[str, ContactEvents],
@@ -110,7 +111,18 @@ class ParallelGibbs:
                 raise FileNotFoundError(
                     f"contacts file not found: {contacts}")
             self.cutoff = cutoff_from_filename(contacts)
-            self.events = ContactEvents.load(contacts)
+            if contacts.endswith(".pkl"):
+                # the reference's pickled event table works directly
+                # (migration path; io/legacy.py restricted unpickler)
+                from basicrta_torch.io.legacy import load_reference_contacts
+                self.events = load_reference_contacts(contacts)
+                if not isinstance(self.events, ContactEvents):
+                    raise ValueError(
+                        f"{contacts} is a primary contact map; run "
+                        "ProcessContacts (or the reference's) to produce "
+                        "the residence-event table first")
+            else:
+                self.events = ContactEvents.load(contacts)
             if self.events.meta.cutoff is not None:
                 self.cutoff = self.events.meta.cutoff
         else:
@@ -224,12 +236,18 @@ class ProcessProtein:
         return sorted(dirs, key=lambda d: int(os.path.basename(d)[1:]))
 
     def collect_results(self) -> Dict[str, Optional[str]]:
-        """Residue label -> result path (None when missing), by resid."""
+        """Residue label -> result path (None when missing), by resid; a
+        residue without ``gibbs_{niter}.npz`` takes the reference
+        package's ``gibbs_{niter}.pkl`` where there is one."""
         self.residues = {}
         for adir in self._result_dirs():
             path = os.path.join(adir, f"gibbs_{self.cfg.niter}.npz")
-            self.residues[os.path.basename(adir)] = (
-                path if os.path.exists(path) else None)
+            if not os.path.exists(path):
+                # a reference-package results tree works directly
+                # (Gibbs.load dispatches .pkl to io/legacy)
+                legacy = os.path.join(adir, f"gibbs_{self.cfg.niter}.pkl")
+                path = legacy if os.path.exists(legacy) else None
+            self.residues[os.path.basename(adir)] = path
         return self.residues
 
     def missing_residues(self) -> List[str]:

@@ -883,7 +883,7 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
               checkpoint_path: Optional[str] = None,
               checkpoint_cb=None, progress_cb=None,
               engine: Optional[str] = None, device=None,
-              sharding=None) -> BatchResult:
+              sharding=None, defer_transfer: bool = False):
     """Run full chains for one bucket of residues.
 
     Args:
@@ -906,12 +906,51 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
             shards gives other chains than the unsharded run; n = 1 gives
             the same); an ``event_sharding`` with events > 1 also splits
             the value columns, on the 'collapsed' engine only.
+        defer_transfer: return a ``_DeferredBatch`` whose thinned samples
+            are still on the device, with a CUDA event recorded after the
+            last launch of each lane shard: pass it to
+            :func:`finalize_batch`. A caller running several buckets
+            launches the next bucket before this one's samples are copied.
+
+    Returns:
+        :class:`BatchResult`, or a ``_DeferredBatch`` when
+        ``defer_transfer=True``.
     """
     engine, device = resolve_engine(engine, device, sharding)
     run = _BucketRun(batch, cfg, segment_blocks, checkpoint_path,
                      checkpoint_cb, engine, device, sharding=sharding)
     _advance([run], cfg, progress_cb)
-    return run.result()
+    if not defer_transfer:
+        return run.result()
+    return _DeferredBatch(run, [_record_event(sh) for sh in run.shards
+                                if sh.device.type == "cuda"])
+
+
+def _record_event(shard: _Shard) -> "torch.cuda.Event":
+    """A CUDA event after the last work queued on ``shard``'s stream."""
+    event = torch.cuda.Event()
+    event.record(shard.stream if shard.stream is not None
+                 else torch.cuda.current_stream(shard.device))
+    return event
+
+
+@dataclasses.dataclass
+class _DeferredBatch:
+    """run_batch output with the samples still on the device
+    (``defer_transfer=True``): the finished run and one CUDA event a lane
+    shard on a card."""
+    run: _BucketRun
+    events: list
+
+
+def finalize_batch(deferred) -> BatchResult:
+    """Wait on a ``defer_transfer=True`` result's events and copy its
+    samples to the host; a :class:`BatchResult` is returned as it is."""
+    if isinstance(deferred, BatchResult):
+        return deferred
+    for event in deferred.events:
+        event.synchronize()
+    return deferred.run.result()
 
 
 def run_batches(batches: Sequence[ResidueBatch], cfg: GibbsConfig,
@@ -965,6 +1004,7 @@ def run_residues(times_per_residue: Dict[str, np.ndarray], cfg: GibbsConfig,
                 for ch in range(n_chains)}
     out: Dict[str, list] = {name: [None] * n_chains for name in nonempty}
     sharding = kwargs.get("sharding")
+    kwargs.pop("defer_transfer", None)   # every bucket is on the card at once
     engine, device = resolve_engine(kwargs.pop("engine", None),
                                     kwargs.pop("device", None), sharding)
     if ladder == "engine":

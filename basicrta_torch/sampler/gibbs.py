@@ -214,7 +214,17 @@ class Gibbs:
 
     @classmethod
     def load(cls, path: str) -> "Gibbs":
-        """Rehydrate from :meth:`save` output of either package."""
+        """Rehydrate from :meth:`save` output of either package.
+
+        A reference-package ``gibbs_{niter}.pkl`` loads too (chains and
+        configuration; re-run :meth:`process_gibbs` for processed state):
+        see :mod:`basicrta_torch.io.legacy`.
+        """
+        if path.endswith(".pkl"):
+            from basicrta_torch.io.legacy import load_reference_gibbs
+            return load_reference_gibbs(
+                path, root=os.path.dirname(os.path.dirname(
+                    os.path.dirname(os.path.abspath(path)))))
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["_meta"]))
             g = cls(times=z["times"], residue=meta["residue"],

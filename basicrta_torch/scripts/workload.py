@@ -3,7 +3,8 @@
 The port's copies of ``bench.py``'s generators; the same seed gives the
 same data as ``bench.py``.
 
-- ``make_workload``: the all-residue protein. One flagship residue at the
+- ``make_workload`` (``bench_residues``: keyed ``'R{i}'`` as bench.py
+  keys it): the all-residue protein. One flagship residue at the
   bundled W313 dataset's size (446,605 events) and residues whose event
   counts are log-uniform in 10^2..10^5.3, each a hyperexponential mixture
   with the W313 posterior's shape, discretised to 0.1 ns.
@@ -46,6 +47,12 @@ def make_workload(n_residues=N_RESIDUES, seed=0, flagship=W313_EVENTS):
         residues[i] = discretize(simulate_hyperexp(int(n), w, r * scale,
                                                    rng))
     return residues
+
+
+def bench_residues(n_residues=N_RESIDUES, seed=0):
+    """:func:`make_workload` keyed as ``bench.py`` keys it: ``'R{i}'``
+    (the names salt each bucket's kernel seed)."""
+    return {f"R{i}": t for i, t in make_workload(n_residues, seed).items()}
 
 
 def _membrane(n_frames, batch, seed, R1, P1, R2, P2, box_l, first_resid2):

@@ -2099,6 +2099,302 @@ def sharded_phase(workload, tmp):
           f"{t3 - t2:.1f}, 11d {time.time() - t3:.1f}", flush=True)
 
 
+# ------------------------------------------------------------- phase 12
+def _quiet_cli(argv, logpath):
+    """Run one CLI command with its output appended to ``logpath``."""
+    from basicrta_torch import cli
+    with open(logpath, "a") as log, contextlib.redirect_stdout(log), \
+            contextlib.redirect_stderr(log):
+        cli.main(argv)
+
+
+def _stand_in_modules():
+    """Throwaway ``basicrta`` / ``MDAnalysis`` modules to write pickles
+    with the reference package's class paths; removed again by
+    :func:`_drop_stand_ins` so that loading must work without them."""
+    import types
+    gibbs_mod = types.ModuleType("basicrta.gibbs")
+    groups = types.ModuleType("MDAnalysis.core.groups")
+
+    class Gibbs:
+        pass
+
+    class AtomGroup:
+        def __init__(self, tag):
+            self.tag = tag
+
+    for cls, mod, name in ((Gibbs, gibbs_mod, "Gibbs"),
+                           (AtomGroup, groups, "AtomGroup")):
+        setattr(mod, name, cls)
+        cls.__module__, cls.__qualname__ = mod.__name__, name
+    mods = {"basicrta": types.ModuleType("basicrta"),
+            "basicrta.gibbs": gibbs_mod,
+            "MDAnalysis": types.ModuleType("MDAnalysis"),
+            "MDAnalysis.core": types.ModuleType("MDAnalysis.core"),
+            "MDAnalysis.core.groups": groups}
+    sys.modules.update(mods)
+    return mods, Gibbs, AtomGroup
+
+
+def _drop_stand_ins(mods):
+    for name in mods:
+        sys.modules.pop(name, None)
+
+
+def legacy_tree(tmp):
+    """12a: a planted system's events on the card, written as the
+    reference package's ``contacts_7.0.pkl``; ``gibbs`` on the pickle
+    against ``gibbs`` on the ``.npz`` of the same events (samples bitwise
+    equal, K2/K3 launched, plain versions never); the chains written as a
+    reference results tree of ``gibbs_{niter}.pkl``; ``cluster`` over it
+    (post-processing on the card) and ``kinetics`` from the pickles."""
+    import pickle
+
+    from basicrta_torch.contacts.records import ContactEvents
+    from basicrta_torch.io.legacy import (load_reference_contacts,
+                                          load_reference_gibbs)
+    from basicrta_torch.sampler.gibbs import Gibbs
+    from basicrta_torch.scripts import e2e_demo
+    niter = 2000
+    root = os.path.join(tmp, "legacy")
+    os.makedirs(root)
+    log = os.path.join(root, "cli.log")
+    e2e_demo.make_system(root, 24, 12, 1500, 0.1,
+                         np.random.default_rng(11))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _quiet_cli(["contacts", "--top", "top.gro", "--traj", "traj.xtc",
+                    "--sel1", "protein", "--sel2", "resname CHOL",
+                    "--cutoff", "7.0"], log)
+        events = ContactEvents.load("contacts_7.0.npz")
+        mods, RefGibbs, AtomGroup = _stand_in_modules()
+        try:
+            dtype = np.dtype(np.float64, metadata={
+                "top": os.path.abspath("top.gro"),
+                "traj": os.path.abspath("traj.xtc"),
+                "ag1": AtomGroup("protein"), "ag2": AtomGroup("CHOL"),
+                "ts": 0.1, "cutoff": 7.0})
+            rows = np.stack([events.sel1_resids, events.sel2_resids,
+                             events.start_times, events.durations], 1)
+            with open("contacts_7.0.pkl", "wb") as f:
+                pickle.dump(rows.astype(dtype), f, protocol=5)
+        finally:
+            _drop_stand_ins(mods)
+        loaded = load_reference_contacts("contacts_7.0.pkl")
+        for f in ("sel1_resids", "sel2_resids", "start_times", "durations"):
+            require(np.array_equal(getattr(loaded, f), getattr(events, f)),
+                    f"12a: the pickle's {f} differ from the .npz's")
+        runs = {}
+        for kind in ("pkl", "npz"):
+            # each run from here (the topology names the labels), its
+            # results tree moved aside after it
+            _reset_sweep_launches()
+            t0 = time.time()
+            _quiet_cli(["gibbs", "--contacts", f"contacts_7.0.{kind}",
+                        "--niter", str(niter)], log)
+            runs[kind] = (time.time() - t0, _sweep_launches())
+            os.makedirs(kind)
+            os.rename("basicrta-7.0", os.path.join(kind, "basicrta-7.0"))
+        # residues with results (too few events leave a sentinel only)
+        labels, other = (sorted(lab for lab in os.listdir(
+            f"{kind}/basicrta-7.0") if os.path.exists(
+                f"{kind}/basicrta-7.0/{lab}/gibbs_{niter}.npz"))
+            for kind in ("pkl", "npz"))
+        require(labels and labels == other, "12a: residue sets differ")
+        for lab in labels:
+            a, b = (Gibbs.load(f"{kind}/basicrta-7.0/{lab}/"
+                               f"gibbs_{niter}.npz") for kind in ("pkl",
+                                                                  "npz"))
+            require(np.array_equal(a.mcweights, b.mcweights)
+                    and np.array_equal(a.mcrates, b.mcrates),
+                    f"12a: {lab}'s samples from the .pkl differ from the "
+                    ".npz run's")
+        for kind, (sec, n) in runs.items():
+            require(n["segment"] + n["segment_packed"] > 0 and
+                    n["segment_torch"] + n["segment_packed_torch"] == 0,
+                    f"12a: gibbs on the .{kind} launched {n}")
+        # the chains as a reference results tree of gibbs_{niter}.pkl
+        mods, RefGibbs, _ = _stand_in_modules()
+        try:
+            for lab in labels:
+                g = Gibbs.load(f"pkl/basicrta-7.0/{lab}/gibbs_{niter}.npz")
+                r = RefGibbs()
+                r.times, r.residue, r.cutoff, r.ts = (g.times, lab, 7.0,
+                                                      0.1)
+                r.ncomp, r.niter, r.g, r.burnin = (g.cfg.ncomp, niter,
+                                                   g.cfg.g, g.cfg.burnin)
+                r.mcweights, r.mcrates = g.mcweights[0], g.mcrates[0]
+                os.makedirs(f"ref/basicrta-7.0/{lab}")
+                with open(f"ref/basicrta-7.0/{lab}/gibbs_{niter}.pkl",
+                          "wb") as f:
+                    pickle.dump(r, f, protocol=5)
+        finally:
+            _drop_stand_ins(mods)
+        g0 = load_reference_gibbs(f"ref/basicrta-7.0/{labels[0]}/"
+                                  f"gibbs_{niter}.pkl")
+        require(g0.mcweights.shape[0] == 1 and g0.processed is None,
+                "12a: a migrated residue has one chain, no processed state")
+        os.chdir("ref")
+        _reset_sweep_launches()
+        t0 = time.time()
+        _quiet_cli(["cluster", "--cutoff", "7.0", "--niter", str(niter)],
+                   log)
+        cluster_s = time.time() - t0
+        taus = np.load("tausout.npy")
+        # kinetics on the migrated residue with the most events
+        top = max(labels, key=lambda lab: int(
+            (events.sel1_resids == int(lab[1:])).sum()))
+        t0 = time.time()
+        _quiet_cli(["kinetics", "--gibbs",
+                    f"basicrta-7.0/{top}/gibbs_{niter}.pkl", "--contacts",
+                    "../contacts_7.0.pkl", "--wdensity"], log)
+        kinetics_s = time.time() - t0
+        dx = sorted(x for x in os.listdir(f"basicrta-7.0/{top}")
+                    if x.endswith(".dx"))
+    finally:
+        os.chdir(cwd)
+    require(len(taus) == len(labels) and np.all(np.isfinite(taus)),
+            "12a: a migrated residue's tau is not finite")
+    lo, hi = taus[:, 2], taus[:, 3]
+    require(np.all((0 <= lo) & (lo <= hi)), "12a: CI not 0 <= lo <= hi")
+    require(dx, "12a: kinetics from the pickles wrote no density")
+    print(f"phase 12a legacy: {len(events)} events of {len(labels)} "
+          f"residues as contacts_7.0.pkl; gibbs --contacts .pkl "
+          f"{runs['pkl'][0]:.2f} s, .npz {runs['npz'][0]:.2f} s, samples "
+          f"bitwise equal; launches {runs['pkl'][1]}; reference tree of "
+          f"{len(labels)} gibbs_{niter}.pkl -> cluster {cluster_s:.2f} s "
+          f"(tau finite, 0 <= lo <= hi; median tau "
+          f"{float(np.median(taus[:, 1])):.3f} ns), kinetics of {top} from "
+          f".pkl {kinetics_s:.2f} s ({len(dx)} .dx)",
+          flush=True)
+
+
+def _kernel_launch_gate(what, need_k2=True, need_k3=True):
+    n = _sweep_launches()
+    require((n["segment"] > 0 or not need_k2)
+            and (n["segment_packed"] > 0 or not need_k3)
+            and n["segment_torch"] + n["segment_packed_torch"] == 0,
+            f"{what}: launches {n}")
+    return n
+
+
+def layout_tools(tmp):
+    """12b: ``calibrate_layout`` on protein-300 (mixed, uniform, pow2; 2
+    reps); 12c: ``layout_sweep``'s five variants at 10,000 sweeps, 2
+    reps."""
+    from basicrta_torch.scripts import calibrate_layout, layout_sweep
+    from basicrta_torch.scripts.workload import bench_residues
+    residues = bench_residues()
+    _reset_sweep_launches()
+    t0 = time.time()
+    rows = calibrate_layout.measure(
+        residues, ["mixed", "uniform", "pow2"], 2000, 8000, 2,
+        __import__("torch").device("cuda"), log=io.StringIO())
+    buf = io.StringIO()
+    coef, r2 = calibrate_layout.report(rows, out=buf)
+    n = _kernel_launch_gate("12b calibrate_layout")
+    with open(os.path.join(tmp, "calibration.json"), "w") as f:
+        json.dump(rows, f)
+    print("phase 12b calibrate_layout (buckets in series; production "
+          "runs them at once):" + buf.getvalue().replace(
+              "\n", "\nphase 12b "), flush=True)
+    print(f"phase 12b refit {json.dumps(dict(zip(calibrate_layout.COEF_NAMES, [float(c) for c in coef])))} "
+          f"r2 {r2:.6g}, {len(rows)} buckets, launches {n}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    _reset_sweep_launches()
+    t0 = time.time()
+    res = layout_sweep.sweep(
+        residues, list(layout_sweep.VARIANTS), 10_000, 2, "cuda",
+        out=lambda line: print(f"phase 12c {line}", flush=True))
+    n = _kernel_launch_gate("12c layout_sweep")
+    ranking = sorted(((float(np.median(ts)), v) for v, (_, ts)
+                      in res.items()))
+    print("phase 12c ranking " + json.dumps(
+        [{"variant": v, "lane_sweeps_per_s": len(residues) * 10_000 / m,
+          "median_s": m, "model_us_per_sweep": res[v][0]}
+         for m, v in ranking]) + f", launches {n}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+
+def post_and_contacts_tools():
+    """12d: ``postbench``'s stage split (outputs with ``timings`` bitwise
+    those without); 12e: ``cbench``'s three variants, rows equal."""
+    import torch
+
+    from basicrta_torch.config import GibbsConfig
+    from basicrta_torch.scripts import cbench, postbench
+    from basicrta_torch.scripts.workload import make_membrane_frames
+    dev = torch.device("cuda")
+    t0 = time.time()
+    items, cfg = postbench.make_items(64, dev)
+    pcfg = GibbsConfig(ncomp=15, niter=cfg.niter, g=100,
+                       burnin=cfg.niter // 10)
+    total, stages, same = postbench.bench(items, pcfg, 3, dev)
+    require(same, "12d: the timings hook changed the outputs")
+    print(f"phase 12d postbench: {len(items)} residues, warm total "
+          f"{total:.4f} s ({total / len(items) * 1e3:.2f} ms/residue), "
+          f"stages {json.dumps(stages)}, timings bitwise no-op, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    batches, r1, r2, A1 = make_membrane_frames(n_frames=96)
+    fps = cbench.bench(batches, r1, r2, A1, 5, dev,
+                       out=lambda line: None)
+    print("phase 12e cbench (96 membrane frames, rows of every variant "
+          "equal the dense kernel's): median frames/s " + json.dumps(
+              {k: float(np.median(v)) for k, v in fps.items()})
+          + f", {time.time() - t0:.1f} s", flush=True)
+
+
+def e2e_and_entry(tmp):
+    """12f: ``e2e_demo`` at its defaults on the card; 12g: ``entry()`` and
+    ``dryrun_multichip(2)``."""
+    from basicrta_torch import entry
+    from basicrta_torch.scripts import e2e_demo
+    _reset_sweep_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        seconds, planted, median = e2e_demo.run(os.path.join(tmp, "e2e"))
+    n = _kernel_launch_gate("12f e2e_demo", need_k2=False, need_k3=False)
+    require(n["segment"] + n["segment_packed"] > 0,
+            f"12f: no sweep kernel launched {n}")
+    require(np.isfinite(median), "12f: no residue got a tau")
+    print(f"phase 12f e2e_demo (120 residues, 60 lipids, 5,000 frames, "
+          f"110,000 sweeps): stage seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}, "
+          f"planted slowest tau {planted:.2f} ns, median tau "
+          f"{median:.3f} ns, launches {n}", flush=True)
+    t0 = time.time()
+    fn, args = entry.entry()
+    st, W, R = fn(*args)
+    require(tuple(W.shape) == (8, 2, 15) and bool(W.isfinite().all()),
+            "12g: entry's block")
+    _reset_sweep_launches()
+    legs = []
+    entry.dryrun_multichip(2, out=legs.append)
+    n = _kernel_launch_gate("12g dryrun_multichip")
+    print(f"phase 12g entry OK, dryrun_multichip(2) {len(legs)} legs OK "
+          f"({'; '.join(legs)}), launches {n}, {time.time() - t0:.1f} s",
+          flush=True)
+
+
+def tools_phase(tmp):
+    """Phase 12: 12a-12g, each with its seconds."""
+    marks = [time.time()]
+    legacy_tree(tmp)
+    marks.append(time.time())
+    layout_tools(tmp)
+    marks.append(time.time())
+    post_and_contacts_tools()
+    marks.append(time.time())
+    e2e_and_entry(tmp)
+    marks.append(time.time())
+    steps = ("12a", "12b-c", "12d-e", "12f-g")
+    print("phase 12 seconds: " + ", ".join(
+        f"{k} {b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:]))
+        + f", total {marks[-1] - marks[0]:.1f}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2132,8 +2428,8 @@ def main():
         # python3 chip_smoke.py --only 5,8,9,10: the phases that stand
         # alone, while iterating on them; prints no result line
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"5", "8", "9", "10", "11"},
-                "--only takes 5, 8, 9, 10 and/or 11")
+        require(only <= {"5", "8", "9", "10", "11", "12"},
+                "--only takes 5, 8, 9, 10, 11 and/or 12")
         if "5" in only:
             prng_checks()
         with tempfile.TemporaryDirectory() as tmp:
@@ -2156,6 +2452,8 @@ def main():
                 reference_phase(workload, g, tmp)
             if "11" in only:
                 sharded_phase(workload, tmp)
+            if "12" in only:
+                tools_phase(tmp)
         print(f"partial run (phases 1, {sorted(only)}): no result")
         return 0
     workload = make_workload()
@@ -2174,6 +2472,7 @@ def main():
         densities_full_size(flagship, work, label, tmp)
         reference_phase(workload, flagship, tmp)
         sharded_phase(workload, tmp)
+        tools_phase(tmp)
     require("jax" not in sys.modules, "jax was imported")
     require("basicrta_tpu" not in sys.modules, "basicrta_tpu was imported")
 

@@ -690,3 +690,78 @@ def test_lane_shards_on_one_card(dev):
     peak = np.abs(grids[0]).max(axis=(1, 2, 3))
     assert (np.abs(grids[1] - grids[0]).max(axis=(1, 2, 3))
             <= 1e-5 * peak).all()
+
+
+def test_deferred_run_batch_bitwise_eager_on_the_card(dev):
+    """``run_batch(defer_transfer=True)`` + ``finalize_batch`` on K3 and K2
+    buckets: one CUDA event a shard, samples bitwise the eager call's."""
+    rng = np.random.default_rng(4)
+    times = {f"R{i}": np.repeat(np.arange(1, n) * 0.1,
+                                rng.integers(1, 30, n - 1))
+             for i, n in enumerate(rng.integers(20, 600, 30))}
+    cfg = GibbsConfig(ncomp=5, niter=40, g=10, seed=2)
+    for b in (batch.bucket_residues(times)
+              + batch.bucket_residues(times, ladder="pow2")[:1]):
+        eager = batch.run_batch(b, cfg, engine="cuda")
+        handle = batch.run_batch(b, cfg, engine="cuda", defer_transfer=True)
+        assert len(handle.events) == 1
+        late = batch.finalize_batch(handle)
+        np.testing.assert_array_equal(eager.mcweights, late.mcweights)
+        np.testing.assert_array_equal(eager.mcrates, late.mcrates)
+
+
+def test_timings_change_nothing_on_the_card(dev):
+    """``process_residues_batched(timings={})`` on the card: the four keys,
+    outputs bitwise those without the hook."""
+    from basicrta_torch.postprocess.batched import process_residues_batched
+    from basicrta_torch.sampler.kernels import dedup_times
+    from basicrta_torch.scripts.postbench import same_results
+    rng = np.random.default_rng(5)
+    items = {}
+    for i in range(4):
+        v, c = dedup_times(np.round(rng.exponential(1.0, 800), 1) + 0.1)
+        items[f"R{i}"] = (rng.dirichlet([6.0, 2.0, 0.5, 0.5], (1, 40)),
+                          rng.gamma(2.0, 1.0, (1, 40, 4)), v, c)
+    cfg = GibbsConfig(ncomp=4, niter=400, g=10, burnin=50, gmm_n_init=6)
+    plain = process_residues_batched(items, cfg, device=dev)
+    t = {}
+    timed = process_residues_batched(items, cfg, device=dev, timings=t)
+    assert set(t) == {"host_prep_s", "gmm_s", "votes_s", "finish_s"}
+    assert same_results(plain, timed)
+
+
+def test_entry_and_dryrun_on_the_card(dev):
+    """``entry()`` on the card, and ``dryrun_multichip(2)`` repeating the
+    card: every leg's assert passes and the fused legs launch K2 and
+    K3, never a plain version."""
+    from basicrta_torch import entry
+    fn, args = entry.entry()
+    st, W, R = fn(*args)
+    assert W.device.type == "cuda" and W.shape == (8, 2, 15)
+    assert torch.isfinite(W).all()
+    for f in (cuda_sweep.segment, cuda_sweep.segment_packed):
+        f.launches = 0
+    for f in (cuda_sweep.segment_torch, cuda_sweep.segment_packed_torch):
+        f.calls = 0
+    entry.dryrun_multichip(2)
+    assert cuda_sweep.segment.launches > 0
+    assert cuda_sweep.segment_packed.launches > 0
+    assert cuda_sweep.segment_torch.calls == 0
+    assert cuda_sweep.segment_packed_torch.calls == 0
+
+
+def test_calibrate_run_times_a_kernel_launch(dev):
+    """``calibrate_layout``'s timed call launches K3 on a mixed bucket and
+    K2 on a pow2 bucket and returns CUDA-event milliseconds."""
+    from basicrta_torch.scripts import calibrate_layout
+    rng = np.random.default_rng(6)
+    times = {f"R{i}": np.repeat(np.arange(1, n) * 0.1,
+                                rng.integers(1, 30, n - 1))
+             for i, n in enumerate(rng.integers(20, 600, 30))}
+    cfg = GibbsConfig(ncomp=15, niter=200, g=100)
+    for lay in ("mixed", "pow2"):
+        b = calibrate_layout._layout_batches(times, lay)[0]
+        fn = cuda_sweep.segment_packed if b.pack > 1 else cuda_sweep.segment
+        fn.launches = 0
+        ms = calibrate_layout._make_run(b, cfg, 2, dev)()
+        assert fn.launches == 1 and ms > 0

@@ -35,7 +35,10 @@ def test_every_module_imports_with_jax_blocked():
                 "kinetics.__main__", "plots", "protein.homologues", "gibbs",
                 "cluster", "datafiles", "scripts.sbc", "scripts.validate",
                 "scripts.reference_sampler", "parallel", "parallel.mesh",
-                "parallel.distributed"):
+                "parallel.distributed", "io.legacy", "entry",
+                "scripts.calibrate_layout", "scripts.layout_sweep",
+                "scripts.postbench", "scripts.cbench", "scripts.e2e_demo",
+                "scripts.logerr_sim", "scripts.cpu_contacts_baseline"):
         assert f"basicrta_torch.{new}" in mods
     code = ("import sys, importlib\n"
             "sys.modules['basicrta_tpu'] = None\n"

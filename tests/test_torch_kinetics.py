@@ -285,8 +285,12 @@ def test_resid_parse_and_inputs_are_loud(system):
     g, _ = _twin(gpath, os.path.join(base, "inputs"))
     with pytest.raises(ValueError, match="traj_format"):
         mapper.MapKinetics(g, epath, traj_format="pdb", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # a .pkl goes to the reference-pickle loader (io/legacy.py), which
+    # opens the file as the JAX package's does
+    with pytest.raises(FileNotFoundError, match="contacts_7.0.pkl"):
         mapper.MapKinetics(g, "contacts_7.0.pkl", device="cpu")
+    with pytest.raises(FileNotFoundError, match="contacts_7.0.pkl"):
+        jmap.MapKinetics(g, "contacts_7.0.pkl")
 
 
 # ------------------------------------------------------------ allclose
