@@ -23,20 +23,44 @@ from basicrta_torch.io.topology import (PDBModelReader, Topology,
                                       read_pdb, read_psf)
 
 
+def _tpr_digest(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
 def _dump_tpr(path: str) -> str:
     """Render a binary ``.tpr`` to its ``gmx dump`` text form, cached as
-    ``{path}.dump`` next to the input (re-rendered when the ``.tpr`` is
-    newer than the cache). The reference accepts a raw ``.tpr`` because
-    MDAnalysis parses the binary (reference contacts.py:246-249); here
-    the binary's versioned layout is delegated to the user's own GROMACS
-    install, which by construction matches the file it wrote."""
+    ``{path}.dump`` next to the input. The reference accepts a raw
+    ``.tpr`` because MDAnalysis parses the binary (reference
+    contacts.py:246-249); here the binary's versioned layout is delegated
+    to the user's own GROMACS install, which by construction matches the
+    file it wrote.
+
+    The cache is keyed on the ``.tpr``'s content: ``{path}.dump.sha256``
+    holds the SHA-256 of the bytes the dump was rendered from, and the
+    dump is served only while it matches (an mtime test misses a rewrite
+    within one clock tick of the cache, and serves the old topology).
+    The old sidecar is removed before the dump is moved into place and
+    the new one written after, so a run killed in between leaves no
+    sidecar vouching for a dump it was not rendered from. The ``.dump``
+    text is exactly what ``gmx dump`` printed. A directory the cache
+    cannot be written to raises the manual recipe as a ``ValueError``."""
     import subprocess
     import shutil as _shutil
 
     cache = path + ".dump"
+    sidecar = cache + ".sha256"
+    recipe = (f"    gmx dump -s {path} > {path}.dump\n"
+              f"and pass the .dump file as the topology (io/gmxdump.py)")
+    digest = _tpr_digest(path)
     try:
-        if os.path.getmtime(cache) >= os.path.getmtime(path):
-            return cache
+        with open(sidecar) as f:
+            if f.read().strip() == digest and os.path.exists(cache):
+                return cache
     except OSError:
         pass
     gmx = os.environ.get("BASICRTA_GMX") or _shutil.which("gmx")
@@ -44,11 +68,25 @@ def _dump_tpr(path: str) -> str:
         raise ValueError(
             f"binary TPR files need GROMACS to render; no `gmx` on PATH. "
             f"Either install GROMACS (the CLI then converts "
-            f"automatically) or convert manually with\n"
-            f"    gmx dump -s {path} > {path}.dump\n"
-            f"and pass the .dump file as the topology (io/gmxdump.py)")
+            f"automatically) or convert manually with\n{recipe}")
     tmp = cache + ".tmp"
-    with open(tmp, "w") as out:
+
+    def unwritable(e):
+        for p in (tmp, sidecar + ".tmp"):
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+        return ValueError(
+            f"cannot write the rendered topology next to {path} "
+            f"(directory {os.path.dirname(os.path.abspath(path))}: {e}); "
+            f"convert manually with\n{recipe}")
+
+    try:
+        out = open(tmp, "w")
+    except OSError as e:
+        raise unwritable(e) from e
+    with out:
         proc = subprocess.run([gmx, "dump", "-s", path], stdout=out,
                               stderr=subprocess.PIPE, text=True)
     if proc.returncode != 0:
@@ -59,7 +97,16 @@ def _dump_tpr(path: str) -> str:
         raise ValueError(
             f"`{gmx} dump -s {path}` failed "
             f"(exit {proc.returncode}):\n{proc.stderr[-2000:]}")
-    os.replace(tmp, cache)   # atomic: readers never see a partial dump
+    try:
+        # the old sidecar goes first: it must never vouch for the new dump
+        if os.path.exists(sidecar):
+            os.remove(sidecar)
+        os.replace(tmp, cache)   # atomic: readers never see a partial dump
+        with open(sidecar + ".tmp", "w") as f:
+            f.write(digest + "\n")
+        os.replace(sidecar + ".tmp", sidecar)
+    except OSError as e:
+        raise unwritable(e) from e
     return cache
 
 

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of basicrta_torch's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only 5,8,9,10,11]
+    python3 chip_smoke.py [--only 5,8,9,10,11,12,13]
 
 With no arguments every phase runs and the result lines are printed;
 ``--only`` runs phase 1 and the named phases that stand alone (5, 8, 9,
-10, 11; 9 runs 8a and the flagship residue of phase 4 first, 10 the
-flagship) and prints no result.
+10, 11, 12, 13; 9 runs 8a and the flagship residue of phase 4 first, 10
+the flagship) and prints no result.
 
 Phases (each raises on failure, so any failure exits non-zero):
 
@@ -116,6 +116,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    (rows equal to unsharded) and the CLI ``contacts --ndevices 0`` (equal
    to no flag). 11d: ``GridAccumulator`` on a sharded mesh against one
    device (rtol 1e-5 of a grid's largest voxel).
+12. the tools (``basicrta_torch.scripts``): reference pickles through
+   ``gibbs``, ``cluster`` and ``kinetics`` (12a), the layout refit and
+   ranking (12b-c), ``postbench`` and ``cbench`` (12d-e), ``e2e_demo`` and
+   ``entry`` (12f-g).
+13. ``contacts`` through the CLI on the card from each file family. 13a:
+   the membrane of 8a at 96 frames as ``.xtc``, ``.trr``, ``.dcd`` and
+   ``.ncdf`` (the port's writers), frames/s a format; the f32 formats'
+   rows equal a ``--device cpu`` run's on the same file, and the ``.trr``
+   rows the ``.dcd`` rows, but for pairs within 1e-4 A of the cutoff.
+   13b: a raw ``.tpr`` through a stub ``gmx`` on ``BASICRTA_GMX``,
+   rewritten with the same size and mtime: 2 renders and the new
+   topology's rows. 13c: ``prmtop`` + NetCDF and PSF + TRR fixtures, rows
+   equal the CPU's under the same gate.
 
 Output: one JSON line of per-kernel results (each with its bound, and the
 time of one PyTorch call that computes the same function where there is
@@ -2395,6 +2408,270 @@ def tools_phase(tmp):
         + f", total {marks[-1] - marks[0]:.1f}", flush=True)
 
 
+# ------------------------------------------------------------- phase 13
+FAMILY_FRAMES = 96             # phase 13a's membrane trajectory
+PRMTOP_TEXT = (
+    "%VERSION  VERSION_STAMP = V0001.000  DATE = 08/18/26\n"
+    "%FLAG TITLE\n%FORMAT(20a4)\ntest\n"
+    "%FLAG ATOM_NAME\n%FORMAT(20a4)\n"
+    "N   CA  C   N   CA  C1  C2  C1  C2\n"
+    "%FLAG RESIDUE_LABEL\n%FORMAT(20a4)\nTRP ALA CHOLCHOL\n"
+    "%FLAG RESIDUE_POINTER\n%FORMAT(10I8)\n"
+    "       1       4       6       8\n"
+    "%FLAG AMBER_ATOM_TYPE\n%FORMAT(20a4)\n"
+    "N   CX  C   N   CX  CT  CT  CT  CT\n")
+PSF_TEXT = """PSF EXT CMAP
+
+         1 !NTITLE
+* SMOKE
+
+         9 !NATOM
+         1 PROA     10       TRP      N        NH1     -0.470000       14.00700           0
+         2 PROA     10       TRP      CA       CT1      0.070000       12.01100           0
+         3 PROA     10       TRP      C        C        0.510000       12.01100           0
+         4 PROA     11       ALA      N        NH1     -0.470000       14.00700           0
+         5 PROA     11       ALA      CA       CT1      0.070000       12.01100           0
+         6 MEMB     100      CHOL     C1       CTL1     0.000000       12.01100           0
+         7 MEMB     100      CHOL     C2       CTL2     0.000000       12.01100           0
+         8 MEMB     101      CHOL     C1       CTL1     0.000000       12.01100           0
+         9 MEMB     101      CHOL     C2       CTL2     0.000000       12.01100           0
+
+         0 !NBOND: bonds
+"""
+
+
+def _tpr_dump(first_resid):
+    """``gmx dump -s`` text of a small system: one protein chain of three
+    residues (N, CA; author numbering from ``first_resid``) and three CHOL
+    copies of four atoms, coordinates 0.2 nm apart, a 5 x 5 x 4 nm box."""
+    def atoms(n, resind, names, mass):
+        return ("         atom (%d):\n" % n + "".join(
+            f"            atom[{i:6d}]={{type=  0, typeB=  0, "
+            f"ptype=    Atom, m= {mass(i):.5e}, q= 0.00000e+00, "
+            f"resind= {resind(i):4d}, atomnumber=  6}}\n" for i in range(n))
+            + "         atom (%d):\n" % n + "".join(
+                f'            atom[{i}]={{name="{names[i]}"}}\n'
+                for i in range(n)))
+    prot = atoms(6, lambda i: i // 2, ["N", "CA"] * 3,
+                 lambda i: 14.007 if i % 2 == 0 else 12.011)
+    chol = atoms(4, lambda i: 0, ["C1", "C2", "C3", "O1"],
+                 lambda i: 15.999 if i == 3 else 12.011)
+    res = "".join(f'            residue[{k}]={{name="{n}", '
+                  f"nr={first_resid + k}, ic=' '}}\n"
+                  for k, n in enumerate(("TRP", "LEU", "ALA")))
+    return (
+        "smoke.tpr:\ntopology:\n   name=\"smoke\"\n   #atoms = 18\n"
+        "   #molblock = 2\n"
+        "   molblock (0):\n"
+        "      moltype              = 0 \"Protein_chain_A\"\n"
+        "      #molecules           = 1\n"
+        "   molblock (1):\n      moltype              = 1 \"CHOL\"\n"
+        "      #molecules           = 3\n"
+        "   moltype (0):\n      name=\"Protein_chain_A\"\n      atoms:\n"
+        + prot + "         residue (3):\n" + res +
+        "   moltype (1):\n      name=\"CHOL\"\n      atoms:\n" + chol
+        + "         residue (1):\n"
+        "            residue[0]={name=\"CHOL\", nr=1, ic=' '}\n"
+        "box (3x3):\n"
+        "   box[    0]={ 5.00000e+00,  0.00000e+00,  0.00000e+00}\n"
+        "   box[    1]={ 0.00000e+00,  5.00000e+00,  0.00000e+00}\n"
+        "   box[    2]={ 0.00000e+00,  0.00000e+00,  4.00000e+00}\n"
+        "x (18x3):\n" + "".join(
+            f"   x[{i:5d}]={{ {0.2 * i:.5e},  1.00000e+00,  1.00000e+00}}\n"
+            for i in range(18)))
+
+
+def _contacts_cli(work, top, traj, cpu=False):
+    """``contacts`` through the CLI in ``work`` (its own directory), on
+    the card unless ``cpu``: (records, events, seconds)."""
+    from basicrta_torch.contacts.records import ContactEvents, ContactRecords
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.time()
+        _quiet_cli(["contacts", "--top", top, "--traj", traj, "--sel1",
+                    "protein", "--sel2", "resname CHOL", "--cutoff", "7.0",
+                    *(["--device", "cpu"] if cpu else [])], "cli.log")
+        secs = time.time() - t0
+        return (ContactRecords.load("contacts.npz"),
+                ContactEvents.load("contacts_7.0.npz"), secs)
+    finally:
+        os.chdir(cwd)
+
+
+def _rows_agree(what, a, b):
+    """Hold two scans' contact rows against each other on every frame:
+    rows on one side only must lie within 1e-4 A of the map cutoff, and
+    shared rows agree within 1e-4 A (``check_frame``'s gate, PERF.md §2).
+    Returns (shared, lone)."""
+    from basicrta_torch.scripts.contacts_reference import check_frame
+    cutoff = a.meta.cutoff
+    require(b.meta.cutoff == cutoff, f"13 {what}: map cutoffs differ")
+    shared = lone = 0
+    for f in np.union1d(a.frames, b.frames):
+        rows = [(r.sel1_resids[r.frames == f], r.sel2_resids[r.frames == f],
+                 r.min_dist[r.frames == f]) for r in (a, b)]
+        try:
+            s, n, _ = check_frame(rows[0], rows[1], cutoff)
+        except AssertionError as e:
+            raise RuntimeError(f"13 {what} frame {f}: {e}") from e
+        shared, lone = shared + s, lone + n
+    require(shared > 0, f"13 {what}: no contact rows")
+    return shared, lone
+
+
+def family_membrane(tmp):
+    """13a: the membrane of phase 8a (96 frames) as ``.xtc``, ``.trr``,
+    ``.dcd`` and ``.ncdf`` through the CLI on the card; the f32 formats
+    each against a ``--device cpu`` run on the same file, and the ``.trr``
+    rows against the ``.dcd`` rows."""
+    from basicrta_torch.io.native import trajectory_writer
+    from basicrta_torch.scripts.workload import (make_membrane_frames,
+                                                 write_membrane_files)
+    base = os.path.join(tmp, "families")
+    os.makedirs(base)
+    batches, r1, r2, _ = make_membrane_frames(n_frames=FAMILY_FRAMES,
+                                              batch=32)
+    gro, xtc = write_membrane_files(base, batches, r1, r2)
+    trajs = {"xtc": xtc}
+    for ext in ("trr", "dcd", "ncdf"):
+        trajs[ext] = os.path.join(base, f"membrane.{ext}")
+        with trajectory_writer(trajs[ext], dt_ns=0.1) as w:
+            for b in batches:
+                w.write(b.positions, b.times, b.box,
+                        steps=np.asarray(b.frame_ids, np.int32))
+    del batches
+    card = {}
+    for ext, traj in trajs.items():
+        rec, ev, secs = _contacts_cli(os.path.join(base, ext), gro, traj)
+        require(len(ev) > 0, f"13a {ext}: no events")
+        require(abs(rec.meta.ts - 0.1) < 1e-6, f"13a {ext}: ts {rec.meta.ts}")
+        card[ext] = rec
+        line = (f"phase 13a {ext}: {FAMILY_FRAMES} frames x "
+                f"{len(r1) + len(r2)} atoms, card {secs:.3f} s = "
+                f"{FAMILY_FRAMES / secs:.1f} frames/s end to end, "
+                f"{len(rec)} rows, {len(ev)} events")
+        if ext != "xtc":      # the f32 formats: the CPU reads the same rows
+            crec, _, csecs = _contacts_cli(os.path.join(base, ext + "_cpu"),
+                                           gro, traj, cpu=True)
+            shared, lone = _rows_agree(f"13a {ext} card/CPU", rec, crec)
+            line += (f"; --device cpu {csecs:.3f} s, {shared} rows equal, "
+                     f"{lone} within 1e-4 A of the cutoff on one side only")
+        print(line, flush=True)
+    # TRR keeps nm, DCD Angstrom: the same frames to f32 rounding
+    shared, lone = _rows_agree("13a trr/dcd", card["trr"], card["dcd"])
+    print(f"phase 13a trr against dcd on the card: {shared} rows equal, "
+          f"{lone} within 1e-4 A of the cutoff on one side only",
+          flush=True)
+
+
+def family_tpr(tmp):
+    """13b: a raw ``.tpr`` on the card through a stub ``gmx`` on
+    ``BASICRTA_GMX``, then rewritten with the same size and mtime: the
+    content-keyed cache must render it again and give the new rows."""
+    from basicrta_torch.io.native import XTCWriter
+    work = os.path.join(tmp, "tpr")
+    os.makedirs(work)
+    payload, calls = os.path.join(work, "payload.dump"), \
+        os.path.join(work, "gmx_calls")
+    gmx = os.path.join(work, "gmx")
+    with open(gmx, "w") as f:
+        f.write(f"#!/bin/sh\necho x >> {calls}\n"
+                f"[ \"$1\" = dump ] && [ \"$2\" = -s ] || exit 2\n"
+                f"exec cat {payload}\n")
+    os.chmod(gmx, 0o755)
+    tpr = os.path.join(work, "x.tpr")
+    # CHOL copy 1 within 7 A of the first N in frames 1-3, far otherwise
+    first = np.tile(np.arange(18, dtype=np.float32)[:, None] * 2.0, (1, 3))
+    frames = np.repeat(first[None], 6, axis=0)
+    for k in range(6):
+        frames[k, 6:10] = first[0] + (2.0 if 1 <= k <= 3 else 20.0)
+    traj = os.path.join(work, "t.xtc")
+    XTCWriter(traj).write(frames, np.arange(6) * 0.1,
+                          np.tile([50.0, 50.0, 40.0], (6, 1)))
+    old_env = os.environ.get("BASICRTA_GMX")
+    os.environ["BASICRTA_GMX"] = gmx
+    try:
+        pairs = []
+        for k, (resid0, blob) in enumerate(((313, b"\x00\x01tpr-v1"),
+                                            (413, b"\x00\x01tpr-v2"))):
+            with open(payload, "w") as f:
+                f.write(_tpr_dump(resid0))
+            with open(tpr, "wb") as f:
+                f.write(blob)                        # the same size
+            if k:                                    # and the cache's mtime
+                stamp = os.stat(tpr + ".dump").st_mtime_ns
+                os.utime(tpr, ns=(stamp, stamp))
+            _, ev, _ = _contacts_cli(os.path.join(work, f"run{k}"), tpr,
+                                     traj)
+            pairs.append(sorted(set(zip(ev.sel1_resids.tolist(),
+                                        ev.sel2_resids.tolist()))))
+        with open(calls) as f:
+            n_calls = f.read().count("x")
+    finally:
+        if old_env is None:
+            os.environ.pop("BASICRTA_GMX", None)
+        else:
+            os.environ["BASICRTA_GMX"] = old_env
+    require(n_calls == 2, f"13b: gmx ran {n_calls} times, not 2")
+    require((313, 316) in pairs[0] and (413, 416) in pairs[1]
+            and all(r1 >= 413 for r1, _ in pairs[1]),
+            f"13b: the rewritten .tpr's rows {pairs}")
+    print(f"phase 13b raw .tpr: gmx ran {n_calls} times (rewrite of the "
+          f"same size and mtime rendered again); event pairs {pairs[0]} "
+          f"then {pairs[1]}", flush=True)
+
+
+def family_fixtures(tmp):
+    """13c: ``prmtop`` + NetCDF and PSF + TRR fixtures through the CLI on
+    the card, rows against the CPU's, and the planted event."""
+    from basicrta_torch.io.native import TRRWriter, trajectory_writer
+    pos = np.zeros((8, 9, 3), np.float32)
+    pos[:, 0:3], pos[:, 3:5] = 10.0, 40.0
+    pos[:, 5:7], pos[:, 7:9] = 70.0, 80.0
+    pos[2:5, 5:7] = [12.0, 10.0, 10.0]         # CHOL 1 visits the protein
+    work = os.path.join(tmp, "amber_charmm")
+    os.makedirs(work)
+    cases = []
+    for name, text, ext, want in (("prmtop", PRMTOP_TEXT, "ncdf", (1, 3)),
+                                  ("psf", PSF_TEXT, "trr", (10, 100))):
+        top = os.path.join(work, f"t.{name}")
+        with open(top, "w") as f:
+            f.write(text)
+        traj = os.path.join(work, f"t.{ext}")
+        writer = trajectory_writer(traj) if ext == "ncdf" else \
+            TRRWriter(traj)
+        with writer as w:
+            w.write(pos, np.arange(8) * 0.1, np.tile([90.0] * 3, (8, 1)))
+        rec, ev, _ = _contacts_cli(os.path.join(work, name), top, traj)
+        crec, _, _ = _contacts_cli(os.path.join(work, name + "_cpu"), top,
+                                   traj, cpu=True)
+        shared, lone = _rows_agree(f"13c {name}", rec, crec)
+        got = {(int(x), int(y)): (s, d) for x, y, s, d in zip(
+            ev.sel1_resids, ev.sel2_resids, ev.start_times, ev.durations)}
+        require(want in got and abs(got[want][0] - 0.2) < 1e-6
+                and abs(got[want][1] - 0.3) < 1e-6,
+                f"13c {name}: events {got}")
+        cases.append(f"{name} + {ext}: {shared} rows equal the CPU's, "
+                     f"{lone} on one side only, event {want} at "
+                     f"{got[want][0]:.1f} ns for {got[want][1]:.1f} ns")
+    print("phase 13c " + "; ".join(cases), flush=True)
+
+
+def file_families(tmp):
+    """Phase 13: ``contacts`` through the CLI on the card from each file
+    family (13a-13c), with each step's seconds."""
+    marks = [time.time()]
+    for step in (family_membrane, family_tpr, family_fixtures):
+        step(tmp)
+        marks.append(time.time())
+    print("phase 13 seconds: " + ", ".join(
+        f"{k} {b - a:.2f}" for k, a, b in zip(("13a", "13b", "13c"), marks,
+                                               marks[1:]))
+        + f", total {marks[-1] - marks[0]:.1f}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2428,8 +2705,8 @@ def main():
         # python3 chip_smoke.py --only 5,8,9,10: the phases that stand
         # alone, while iterating on them; prints no result line
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"5", "8", "9", "10", "11", "12"},
-                "--only takes 5, 8, 9, 10, 11 and/or 12")
+        require(only <= {"5", "8", "9", "10", "11", "12", "13"},
+                "--only takes 5, 8, 9, 10, 11, 12 and/or 13")
         if "5" in only:
             prng_checks()
         with tempfile.TemporaryDirectory() as tmp:
@@ -2454,6 +2731,8 @@ def main():
                 sharded_phase(workload, tmp)
             if "12" in only:
                 tools_phase(tmp)
+            if "13" in only:
+                file_families(tmp)
         print(f"partial run (phases 1, {sorted(only)}): no result")
         return 0
     workload = make_workload()
@@ -2473,6 +2752,7 @@ def main():
         reference_phase(workload, flagship, tmp)
         sharded_phase(workload, tmp)
         tools_phase(tmp)
+        file_families(tmp)
     require("jax" not in sys.modules, "jax was imported")
     require("basicrta_tpu" not in sys.modules, "basicrta_tpu was imported")
 

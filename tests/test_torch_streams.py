@@ -3,7 +3,9 @@
 same samples on the CPU engine, for the pow2 and the production layout,
 with and without checkpoints, and resumed from checkpoints written
 mid-run. Plus the two host helpers of the redesigned kernels: K3's
-per-slot column ranges and the block's thread count.
+per-slot column ranges and the block's thread count, and the checkpoint
+guard: a checkpoint of another workload, another engine or the JAX
+package is refused (``tests/test_aux.py::TestCheckpointResume``).
 """
 
 import os
@@ -131,6 +133,56 @@ def test_run_batches_equals_run_batch_each():
         np.testing.assert_array_equal(res.mcweights, alone.mcweights)
         np.testing.assert_array_equal(res.mcrates, alone.mcrates)
 
+
+def test_checkpoint_rejects_mismatched_workload(tmp_path):
+    """The port's ``load_checkpoint`` resumes only its own workload: not
+    another seed, other residence times, another engine tag, nor a JAX
+    checkpoint of the same bucket; and the JAX package refuses the port's.
+    ``run_batch`` given a refused checkpoint samples from the start."""
+    from basicrta_tpu.config import GibbsConfig as JGibbsConfig
+    from basicrta_tpu.sampler import batch as jbatch
+    from basicrta_tpu.sampler.kernels import MixtureState as JState
+    from basicrta_torch.sampler.kernels import init_mixture_params
+
+    x = _times("pow2")["R0"]
+    b = batch.bucket_residues({"A1": x})[0]
+    jb = jbatch.bucket_residues({"A1": x})[0]
+    np.testing.assert_array_equal(b.values, jb.values)
+    cfg = GibbsConfig(ncomp=4, niter=100, g=10)
+    jcfg = JGibbsConfig(ncomp=4, niter=100, g=10)
+    st = init_mixture_params(4)
+    state = type(st)(st.weights[None], st.rates[None])
+    tag = "basicrta_torch-torch"
+    p = batch.save_checkpoint(str(tmp_path / "c.npz"), b, cfg, 5, 1, state,
+                              [], [], tag)
+    got = batch.load_checkpoint(p, b, cfg, tag)
+    assert got is not None and got[:2] == (5, 1)
+    np.testing.assert_array_equal(got[2].weights, state.weights.numpy())
+    other = batch.bucket_residues({"A1": x * 2.0})[0]
+    for args in ((b, GibbsConfig(ncomp=4, niter=100, g=10, seed=77), tag),
+                 (other, cfg, tag), (b, cfg, "basicrta_torch-cuda"),
+                 (b, cfg, "basicrta_torch-collapsed")):
+        assert batch.load_checkpoint(p, *args) is None
+    # the JAX package's checkpoint of the same bucket, and the reverse
+    jstate = JState(np.asarray(state.weights), np.asarray(state.rates))
+    for engine in ("xla", "pallas"):
+        jp = jbatch.save_checkpoint(str(tmp_path / f"j{engine}.npz"), jb,
+                                    jcfg, 5, 1, jstate, [], [], engine)
+        assert jbatch.load_checkpoint(jp, jb, jcfg, engine) is not None
+        assert jbatch.load_checkpoint(
+            jp, jb, JGibbsConfig(ncomp=4, niter=100, g=10, seed=77),
+            engine) is None
+        for t in ("basicrta_torch-torch", "basicrta_torch-cuda",
+                  "basicrta_torch-collapsed"):
+            assert batch.load_checkpoint(jp, b, cfg, t) is None
+        assert jbatch.load_checkpoint(p, jb, jcfg, engine) is None
+    # the refused file is ignored by the run, which starts from sweep 0
+    small = GibbsConfig(ncomp=3, niter=30, g=10, seed=4)
+    fresh = batch.run_batch(b, small, engine="torch")
+    ck = str(tmp_path / "jxla.npz")
+    again = batch.run_batch(b, small, engine="torch", checkpoint_path=ck)
+    np.testing.assert_array_equal(again.mcweights, fresh.mcweights)
+    np.testing.assert_array_equal(again.mcrates, fresh.mcrates)
 
 def test_slot_ranges_of_the_mixed_packing():
     """The ranges read off _pack_mixed's slot tile are the running
