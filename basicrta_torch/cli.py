@@ -202,16 +202,26 @@ def _flagged_residues(path):
 def _profiled(fn, outdir):
     """Run ``fn`` under torch.profiler (host and, with a card, device
     activities) and write its Chrome trace to ``outdir/gibbs_trace.json``
-    (chrome://tracing, Perfetto)."""
+    (chrome://tracing, Perfetto). The span recorder
+    (:mod:`basicrta_torch.spans`) is on meanwhile, so the trace names the
+    program's stages (``sampler.segment``, ``post.gmm``, ...) over the
+    kernels."""
     import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from basicrta_torch import spans
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        out = fn()
+    spans.enable()
+    try:
+        with profile(activities=acts) as prof:
+            out = fn()
+    finally:
+        spans.disable()
+        spans.drain()
     os.makedirs(outdir, exist_ok=True)
     path = os.path.join(outdir, "gibbs_trace.json")
     prof.export_chrome_trace(path)
@@ -399,7 +409,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "chains")
     g.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run to "
-                        "DIR/gibbs_trace.json")
+                        "DIR/gibbs_trace.json, with the program's stages "
+                        "(sampler.*, post.*) as ranges over the kernels")
     g.set_defaults(fn=_cmd_gibbs)
 
     st = sub.add_parser("status", help="report per-residue result status")

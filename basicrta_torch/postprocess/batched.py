@@ -24,6 +24,8 @@ components than the config names).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
 import zlib
 from typing import Dict, List, Optional, Tuple
@@ -31,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from basicrta_torch import spans
 from basicrta_torch.config import GibbsConfig
 from basicrta_torch.postprocess.clustering import (ClusterResult,
                                                    _label_matrix,
@@ -120,24 +123,21 @@ def _shards(names: List[str], devices) -> List[Tuple[List[str], object]]:
             for i, dev in enumerate(devices) if names[i * per:(i + 1) * per]]
 
 
-class _Laps:
-    """Wall seconds a stage, summed into ``timings`` under the JAX
-    package's keys; with no ``timings`` it does nothing, and nothing
-    waits on the device."""
-
-    def __init__(self, timings: Optional[dict], devices):
-        self.timings = timings
-        self.cards = [d for d in devices if torch.device(d).type == "cuda"]
-        self.mark = time.perf_counter()
-
-    def __call__(self, key: str) -> None:
-        if self.timings is None:
-            return
-        for dev in self.cards:
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        self.timings[key] = self.timings.get(key, 0.0) + (now - self.mark)
-        self.mark = now
+@contextlib.contextmanager
+def _stage(name: str, key: str, timings: Optional[dict], devices):
+    """One stage of the post-processing: the span ``name``. With
+    ``timings`` the stage's wall seconds, to the end of its work on the
+    cards, are added under ``key`` (the JAX package's keys); without it
+    nothing waits on the device."""
+    t0 = time.perf_counter()
+    with spans.span(name):
+        yield
+        if timings is not None:
+            for dev in devices:
+                if torch.device(dev).type == "cuda":
+                    torch.cuda.synchronize(dev)
+    if timings is not None:
+        timings[key] = timings.get(key, 0.0) + (time.perf_counter() - t0)
 
 
 def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
@@ -161,7 +161,9 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
         timings: optional dict; filled with each stage's wall seconds
             (``host_prep_s``, ``gmm_s``, ``votes_s``, ``finish_s``; the
             device synchronized at each stage's end only when it is
-            given), the split ``scripts/postbench.py`` prints.
+            given), the split ``scripts/postbench.py`` prints. The stages
+            are the spans ``post.prep``, ``post.gmm``, ``post.votes`` and
+            ``post.finish`` (:mod:`basicrta_torch.spans`).
 
     Returns:
         {residue: ClusterResult} (sorted labels, pindicator, presorts).
@@ -169,33 +171,33 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
     _, device = resolve_engine(None, device, sharding)
     devices = ([device] if sharding is None
                else sharding.mesh.axis_devices("lanes"))
-    lap = _Laps(timings, devices)
+    stage = functools.partial(_stage, timings=timings, devices=devices)
     b = cfg.burnin_samples
     prepared = {}
-    for name, (mcw, mcr, values, counts) in items.items():
-        W, R = select_chain(np.asarray(mcw), np.asarray(mcr), chain, b)
-        if b >= len(W):
-            raise ValueError(
-                f"burn-in discards all samples for {name} ({b} thinned "
-                f"burn-in vs {len(W)} collected)")
-        W, R = W[b:], R[b:]
-        wcutoff = cfg.wcutoff(int(np.asarray(counts).sum()))
-        lmode = select_lmode(component_counts(W, wcutoff))
-        data, inds, train = gather_cluster_data(W, R, wcutoff, lmode)
-        prepared[name] = dict(W=W, R=R, values=np.asarray(values),
-                              counts=np.asarray(counts), lmode=lmode,
-                              data=data, inds=inds, train=train)
+    with stage("post.prep", "host_prep_s"):
+        for name, (mcw, mcr, values, counts) in items.items():
+            W, R = select_chain(np.asarray(mcw), np.asarray(mcr), chain, b)
+            if b >= len(W):
+                raise ValueError(
+                    f"burn-in discards all samples for {name} ({b} thinned "
+                    f"burn-in vs {len(W)} collected)")
+            W, R = W[b:], R[b:]
+            wcutoff = cfg.wcutoff(int(np.asarray(counts).sum()))
+            lmode = select_lmode(component_counts(W, wcutoff))
+            data, inds, train = gather_cluster_data(W, R, wcutoff, lmode)
+            prepared[name] = dict(W=W, R=R, values=np.asarray(values),
+                                  counts=np.asarray(counts), lmode=lmode,
+                                  data=data, inds=inds, train=train)
 
-    buckets: Dict[tuple, list] = {}
-    for name, p in prepared.items():
-        key = (p["lmode"], _pad_size(len(p["train"])),
-               _pad_size(len(p["data"])))
-        buckets.setdefault(key, []).append(name)
-    lap("host_prep_s")
-    for (lmode, Mt_p, M_p), names in buckets.items():
-        for sub, dev in _shards(names, devices):
-            _gmm_bucket(prepared, sub, lmode, Mt_p, M_p, cfg, dev)
-    lap("gmm_s")
+        buckets: Dict[tuple, list] = {}
+        for name, p in prepared.items():
+            key = (p["lmode"], _pad_size(len(p["train"])),
+                   _pad_size(len(p["data"])))
+            buckets.setdefault(key, []).append(name)
+    with stage("post.gmm", "gmm_s"):
+        for (lmode, Mt_p, M_p), names in buckets.items():
+            for sub, dev in _shards(names, devices):
+                _gmm_bucket(prepared, sub, lmode, Mt_p, M_p, cfg, dev)
 
     vbuckets: Dict[tuple, list] = {}
     for name, p in prepared.items():
@@ -204,40 +206,40 @@ def process_residues_batched(items: Dict[str, tuple], cfg: GibbsConfig,
     results: Dict[str, ClusterResult] = {}
     for (V_p, (S, K)), names in vbuckets.items():
         for shard, dev in _shards(names, devices):
-            _vote_shard(prepared, results, shard, V_p, S, K, cfg, dev, lap)
+            _vote_shard(prepared, results, shard, V_p, S, K, cfg, dev, stage)
     return {name: results[name] for name in items}
 
 
 def _vote_shard(prepared: dict, results: dict, names: List[str], V_p: int,
-                S: int, K: int, cfg: GibbsConfig, device, lap) -> None:
+                S: int, K: int, cfg: GibbsConfig, device, stage) -> None:
     """The vote pass of one bucket's residues on ``device``; fills
-    ``results``, lapping the votes and the host's finish apart."""
+    ``results``, with the votes and the host's finish as stages apart."""
     for part in _chunks(len(names), min(S * V_p * K, VOTE_CHUNK),
                         _VOTE_BATCH):
         sub = names[part]
         Bk = len(sub)
-        Wb = np.empty((Bk, S, K), np.float32)
-        Rb = np.empty((Bk, S, K), np.float32)
-        Vb = np.ones((Bk, V_p), np.float32)
-        Cb = np.zeros((Bk, V_p), np.float32)
-        Lb = np.empty((Bk, S, K), np.int64)
-        for i, name in enumerate(sub):
-            p = prepared[name]
-            Wb[i], Rb[i] = p["W"], p["R"]
-            Vb[i, :len(p["values"])] = p["values"]
-            Cb[i, :len(p["counts"])] = p["counts"]
-            Lb[i] = _label_matrix(p["inds"], p["labels"], (S, K))
-        gens = [residue_generator(cfg, name, 1, device) for name in sub]
-        tens = [torch.as_tensor(x, device=device)
-                for x in (Wb, Rb, Vb, Cb, Lb)]
-        votes = votes_bucket(*tens, gens).cpu().numpy()
-        lap("votes_s")
-        for i, name in enumerate(sub):
-            p = prepared[name]
-            v = votes[i, :len(p["values"]), :p["lmode"]]
-            denom = v.sum(axis=1, keepdims=True)
-            res = ClusterResult(lmode=p["lmode"], labels=p["labels"],
-                                inds=p["inds"], data=p["data"])
-            res.pindicator_values = v / np.maximum(denom, 1e-30)
-            results[name] = sort_labels_by_rate(res, cfg.noise_cutoff)
-        lap("finish_s")
+        with stage("post.votes", "votes_s"):
+            Wb = np.empty((Bk, S, K), np.float32)
+            Rb = np.empty((Bk, S, K), np.float32)
+            Vb = np.ones((Bk, V_p), np.float32)
+            Cb = np.zeros((Bk, V_p), np.float32)
+            Lb = np.empty((Bk, S, K), np.int64)
+            for i, name in enumerate(sub):
+                p = prepared[name]
+                Wb[i], Rb[i] = p["W"], p["R"]
+                Vb[i, :len(p["values"])] = p["values"]
+                Cb[i, :len(p["counts"])] = p["counts"]
+                Lb[i] = _label_matrix(p["inds"], p["labels"], (S, K))
+            gens = [residue_generator(cfg, name, 1, device) for name in sub]
+            tens = [torch.as_tensor(x, device=device)
+                    for x in (Wb, Rb, Vb, Cb, Lb)]
+            votes = votes_bucket(*tens, gens).cpu().numpy()
+        with stage("post.finish", "finish_s"):
+            for i, name in enumerate(sub):
+                p = prepared[name]
+                v = votes[i, :len(p["values"]), :p["lmode"]]
+                denom = v.sum(axis=1, keepdims=True)
+                res = ClusterResult(lmode=p["lmode"], labels=p["labels"],
+                                    inds=p["inds"], data=p["data"])
+                res.pindicator_values = v / np.maximum(denom, 1e-30)
+                results[name] = sort_labels_by_rate(res, cfg.noise_cutoff)

@@ -12,6 +12,8 @@ synchronise with the host once per iteration for the whole batch. Padded
 training rows take weight 0 in ``sw``. The kmeans++ draws come in as
 uniforms, one (C, n_init) block per residue drawn from that residue's own
 generator, so a residue's fit does not depend on its batch mates.
+Each host read of a convergence flag counts as ``host_reads`` on the
+innermost open span (:mod:`basicrta_torch.spans`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from basicrta_torch import spans
 
 
 class GMMParams(NamedTuple):
@@ -88,6 +92,7 @@ def _kmeanspp_init(X, sw, n_components: int, uniforms,
         # a restart whose assignment stopped changing is at a fixed point
         active = active & ~(assign == prev).all(-1)
         prev = assign
+        spans.add("host_reads")
         if not bool(active.any()):
             break
     return centers
@@ -139,6 +144,7 @@ def _em_restarts(X, sw, n_components: int, max_iter: int, tol: float,
         log_w = torch.where(done[..., None], log_w, n_log_w)
         prev_lb = torch.where(done, prev_lb, lb)
         done = now_done
+        spans.add("host_reads")
         if bool(done.all()):
             break
     lb = torch.where(torch.isnan(prev_lb), -math.inf, prev_lb)

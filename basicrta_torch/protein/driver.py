@@ -6,7 +6,9 @@ of the fused sweep kernels (or one residue after another), ``finish_batch``
 post-processes all residues in bucketed batches, and ``ProcessProtein``
 collects the per-residue results into the protein's tau tables (slowest
 process and every cluster), the convergence table, the tau-vs-residue
-figures and the b-factor-coloured structure.
+figures and the b-factor-coloured structure. ``finish_batch`` is the
+span ``post.batch`` of :mod:`basicrta_torch.spans`, with ``post.tau``
+and ``post.save`` a residue inside it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
+from basicrta_torch import spans
 from basicrta_torch.config import GibbsConfig
 from basicrta_torch.contacts.records import ContactEvents
 from basicrta_torch.ops.surv import ci_bars
@@ -38,20 +41,23 @@ def finish_batch(gibbs_by_label: Dict[str, Gibbs], chain=0,
     tau (0, 0, 0)."""
     if not gibbs_by_label:
         return
-    items = {lab: (g.mcweights, g.mcrates, g._values, g._counts)
-             for lab, g in gibbs_by_label.items()}
-    cfg = next(iter(gibbs_by_label.values())).cfg
-    results = process_residues_batched(items, cfg, chain=chain,
-                                       device=device, sharding=sharding)
-    for lab, g in gibbs_by_label.items():
-        g.processed = results[lab]
-        g.parameters, g.intervals = estimate_params(g.processed)
-        try:
-            g.estimate_tau()
-        except AllNoiseError:
-            g.tau = (0.0, 0.0, 0.0)
-        if save:
-            g.save()
+    with spans.span("post.batch"):
+        items = {lab: (g.mcweights, g.mcrates, g._values, g._counts)
+                 for lab, g in gibbs_by_label.items()}
+        cfg = next(iter(gibbs_by_label.values())).cfg
+        results = process_residues_batched(items, cfg, chain=chain,
+                                           device=device, sharding=sharding)
+        for lab, g in gibbs_by_label.items():
+            g.processed = results[lab]
+            with spans.span("post.tau"):
+                g.parameters, g.intervals = estimate_params(g.processed)
+                try:
+                    g.estimate_tau()
+                except AllNoiseError:
+                    g.tau = (0.0, 0.0, 0.0)
+            if save:
+                with spans.span("post.save"):
+                    g.save()
 
 
 def cutoff_from_filename(path: str) -> float:

@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from basicrta_torch import spans
 from basicrta_torch.config import GibbsConfig
 from basicrta_torch.ops.random import seeded_generator
 from basicrta_torch.sampler.cuda_sweep import (_int32, pad_tiers_to_rows,
@@ -417,60 +418,61 @@ def bucket_residues(times_per_residue: Dict[str, np.ndarray],
     128); an explicit ``floor`` keeps a single-class unpacked layout;
     ``consolidate=False`` gives the raw fine ladder of
     :func:`_pack_choice`."""
-    items = []
-    for name, t in times_per_residue.items():
-        if len(t) == 0:
-            continue
-        v, c = dedup_times(t)
-        items.append((name, v, c))
-    packing = pack_small and floor is None and ladder != "pow2"
-    if floor is None:
-        floor = 128
-    if packing and consolidate:
-        groups = _dp_layout(items)
-        if mixed_pack:
-            groups = _merge_adjacent(groups, kmax=kmax)
-    else:
-        buckets: Dict[Tuple[int, int], list] = {}
-        for name, v, c in items:
-            if packing:
-                key = _pack_choice(len(v))
-            elif ladder == "pow2":
-                key = (_next_pow2(len(v), floor), 1)
-            else:
-                key = (max(floor, -(-len(v) // 128) * 128), 1)
-            buckets.setdefault(key, []).append((name, v, c))
-        groups = sorted(buckets.items())
+    with spans.span("sampler.layout"):
+        items = []
+        for name, t in times_per_residue.items():
+            if len(t) == 0:
+                continue
+            v, c = dedup_times(t)
+            items.append((name, v, c))
+        packing = pack_small and floor is None and ladder != "pow2"
+        if floor is None:
+            floor = 128
+        if packing and consolidate:
+            groups = _dp_layout(items)
+            if mixed_pack:
+                groups = _merge_adjacent(groups, kmax=kmax)
+        else:
+            buckets: Dict[Tuple[int, int], list] = {}
+            for name, v, c in items:
+                if packing:
+                    key = _pack_choice(len(v))
+                elif ladder == "pow2":
+                    key = (_next_pow2(len(v), floor), 1)
+                else:
+                    key = (max(floor, -(-len(v) // 128) * 128), 1)
+                buckets.setdefault(key, []).append((name, v, c))
+            groups = sorted(buckets.items())
 
-    out = []
-    for (V, pack), group in groups:
-        bounds, phys_rows = None, 0
-        if mixed_pack and packing and consolidate and len(group) > 1:
-            # adopt the k-way mixed packing where it models cheaper than
-            # the bucket's uniform class
-            m_members, m_widths, m_rows = _mixed_kpack(group, kmax=kmax)
-            if (_mixed_cost(m_members, m_widths, m_rows)
-                    < _bucket_cost(group, V, pack)):
-                group = m_members
-                bounds, phys_rows = m_widths, m_rows
-                pack = int(m_widths.shape[1])
-                V = max(len(v) for _, v, _ in group)
-        B = len(group)
-        values = np.zeros((B, V), np.float64)
-        counts = np.zeros((B, V), np.float64)
-        names, n_events = [], []
-        for i, (name, v, c) in enumerate(group):
-            values[i, :len(v)] = v
-            values[i, len(v):] = 1.0
-            counts[i, :len(c)] = c
-            names.append(name)
-            n_events.append(int(c.sum()))
-        order, tiers = compute_tiers(counts)
-        out.append(ResidueBatch(names,
-                                np.take_along_axis(values, order, axis=-1),
-                                np.take_along_axis(counts, order, axis=-1),
-                                np.asarray(n_events), tiers, pack=pack,
-                                bounds=bounds, phys_rows=phys_rows))
+        out = []
+        for (V, pack), group in groups:
+            bounds, phys_rows = None, 0
+            if mixed_pack and packing and consolidate and len(group) > 1:
+                # adopt the k-way mixed packing where it models cheaper than
+                # the bucket's uniform class
+                m_members, m_widths, m_rows = _mixed_kpack(group, kmax=kmax)
+                if (_mixed_cost(m_members, m_widths, m_rows)
+                        < _bucket_cost(group, V, pack)):
+                    group = m_members
+                    bounds, phys_rows = m_widths, m_rows
+                    pack = int(m_widths.shape[1])
+                    V = max(len(v) for _, v, _ in group)
+            B = len(group)
+            values = np.zeros((B, V), np.float64)
+            counts = np.zeros((B, V), np.float64)
+            names, n_events = [], []
+            for i, (name, v, c) in enumerate(group):
+                values[i, :len(v)] = v
+                values[i, len(v):] = 1.0
+                counts[i, :len(c)] = c
+                names.append(name)
+                n_events.append(int(c.sum()))
+            order, tiers = compute_tiers(counts)
+            out.append(ResidueBatch(names,
+                                    np.take_along_axis(values, order, axis=-1),
+                                    np.take_along_axis(counts, order, axis=-1),
+                                    np.asarray(n_events), tiers, pack=pack,
+                                    bounds=bounds, phys_rows=phys_rows))
     return out
 
 
@@ -665,7 +667,10 @@ class _BucketRun:
     The chain is the same for any segmentation and any interleaving with
     other buckets: every sweep reseeds from the absolute sweep index and
     the seed is salted by the bucket's names (and, on a mesh of n > 1 lane
-    shards, by the shard)."""
+    shards, by the shard). Its spans (:mod:`basicrta_torch.spans`):
+    ``sampler.segment`` the launch, ``sampler.wait`` the host waiting on
+    the segment's samples, ``sampler.checkpoint`` the state's copy and the
+    file written."""
 
     def __init__(self, batch: ResidueBatch, cfg: GibbsConfig,
                  segment_blocks: int, checkpoint_path: Optional[str],
@@ -817,10 +822,11 @@ class _BucketRun:
         the host."""
         nb = min(self.segment_blocks, self.total_blocks - self.done)
         outs = []
-        for sh in self.shards:
-            with _on_stream(sh.stream):
-                sh.state, W, R = self._step(sh, nb)
-            outs.append((W, R))
+        with spans.span("sampler.segment"):
+            for sh in self.shards:
+                with _on_stream(sh.stream):
+                    sh.state, W, R = self._step(sh, nb)
+                outs.append((W, R))
         self._pending = (nb, [W for W, _ in outs], [R for _, R in outs])
 
     def collect(self):
@@ -829,18 +835,22 @@ class _BucketRun:
         self._pending = None
         keep = self.checkpoint_path is not None
         if keep or self.checkpoint_cb is not None:
-            W, R = self._gather(W), self._gather(R)
+            with spans.span("sampler.wait"):
+                W, R = self._gather(W), self._gather(R)
         self.Ws.append(W)
         self.Rs.append(R)
         self.done += nb
         self.seg_idx += 1
         if keep:
-            ck = MixtureState(
-                self._gather([sh.state.weights for sh in self.shards]),
-                self._gather([sh.state.rates for sh in self.shards]))
-            save_checkpoint(self.checkpoint_path, self.batch, self.cfg,
-                            self.done, self.seg_idx, ck, self.Ws,
-                            self.Rs, self.ckpt_engine)
+            with spans.span("sampler.checkpoint"):
+                ck = MixtureState(
+                    self._gather([sh.state.weights for sh in self.shards]),
+                    self._gather([sh.state.rates for sh in self.shards]))
+                path = save_checkpoint(self.checkpoint_path, self.batch,
+                                       self.cfg, self.done, self.seg_idx, ck,
+                                       self.Ws, self.Rs, self.ckpt_engine)
+                if spans.recording():
+                    spans.add("bytes", os.path.getsize(path))
         if self.checkpoint_cb is not None:
             self.checkpoint_cb(self.seg_idx, self.state, (self.Ws, self.Rs))
 

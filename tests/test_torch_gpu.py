@@ -1,8 +1,9 @@
 """Card-only tests of the CUDA kernels: each kernel (K1, K2, the packed
 K3, the PRNG probe K5) against its plain PyTorch version on the same CUDA
 tensors, exact resume, the run_batch engine on packed and mixed buckets,
-batched post-processing on the card, and launch refusals. They skip
-without a CUDA device.
+batched post-processing on the card, the span recorder's clock against
+the profiler's device events and its on/off equality, and launch refusals.
+They skip without a CUDA device.
 
 This file imports no JAX (the card's machine has none); run it there with
 
@@ -728,6 +729,79 @@ def test_timings_change_nothing_on_the_card(dev):
     timed = process_residues_batched(items, cfg, device=dev, timings=t)
     assert set(t) == {"host_prep_s", "gmm_s", "votes_s", "finish_s"}
     assert same_results(plain, timed)
+
+
+def test_spans_share_the_device_trace_clock(dev):
+    """A span around a kernel and a synchronize, under ``torch.profiler``
+    with device activities only, holds the kernel's start and end within
+    0.5 ms: spans and device events are on one clock. Under a profiler
+    alone a span adds no device event, with host activities too (the
+    trace ``chip_smoke.py`` counts the card's busy time from); with the
+    recorder enabled it does, as a ``gpu_user_annotation``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from basicrta_torch import spans
+    spans.drain()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with spans.span("probe"):
+            torch.cuda._sleep(20_000_000)       # about 10 ms
+            torch.cuda.synchronize()
+    (probe,) = [s for s in spans.drain() if s.name == "probe"]
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda]
+    assert len(events) == 1, events
+    start, end, _ = events[0]
+    assert end - start > 1_000_000
+    assert abs(start - probe.t0) < 500_000, (start - probe.t0)
+    assert abs(probe.t1 - end) < 500_000, (probe.t1 - end)
+
+    def device_events():
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            with spans.span("probe"):
+                torch.cuda._sleep(1_000_000)
+                torch.cuda.synchronize()
+        spans.drain()
+        return [e for e in prof.events() if e.device_type == cuda]
+
+    assert len(device_events()) == 1
+    spans.enable()
+    try:
+        annotated = device_events()
+    finally:
+        spans.disable()
+    assert any(e.name == "probe" for e in annotated), annotated
+
+
+def test_recorder_changes_no_result_on_the_card(dev):
+    """``run_residues`` on engine 'cuda' with checkpoints, recorder off and
+    on: the chains bitwise equal, and every sampler span recorded."""
+    import tempfile
+
+    from basicrta_torch import spans
+    rng = np.random.default_rng(4)
+    times = {f"R{i}": np.repeat(rng.uniform(0.1, 30.0, n),
+                                rng.integers(1, 30, n))
+             for i, n in enumerate((40, 300, 900))}
+    cfg = GibbsConfig(ncomp=5, niter=600, g=10, seed=3)
+    out = []
+    for on in (False, True):
+        (spans.enable if on else spans.disable)()
+        with tempfile.TemporaryDirectory() as d:
+            out.append(batch.run_residues(times, cfg, n_chains=2,
+                                          checkpoint_dir=d, engine="cuda",
+                                          segment_blocks=20))
+    spans.disable()
+    names = {s.name for s in spans.drain()}
+    assert {"sampler.layout", "sampler.segment", "sampler.wait",
+            "sampler.checkpoint"} <= names
+    for name in times:
+        for a, b in zip(out[0][name], out[1][name]):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_entry_and_dryrun_on_the_card(dev):
