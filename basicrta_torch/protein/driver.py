@@ -13,6 +13,7 @@ and ``post.save`` a residue inside it.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import warnings
@@ -58,6 +59,20 @@ def finish_batch(gibbs_by_label: Dict[str, Gibbs], chain=0,
             if save:
                 with spans.span("post.save"):
                     g.save()
+
+
+def _saved_tau(path: str) -> Optional[list]:
+    """The tau an ``.npz`` result holds, read from its ``_meta`` and
+    ``tau`` alone (no times inflated, no :class:`Gibbs` rebuilt), as
+    ``Gibbs.load(path).tau`` gives it; None for a pickle or a result that
+    holds no tau."""
+    if path.endswith(".pkl"):
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        if "tau" not in z.files:
+            return None
+        json.loads(str(z["_meta"]))   # fails where Gibbs.load would
+        return list(z["tau"])
 
 
 def cutoff_from_filename(path: str) -> float:
@@ -288,11 +303,14 @@ class ProcessProtein:
                 taus.append([0.0, 0.0, 0.0])
                 continue
             try:
-                g = Gibbs.load(path)
-                g.root = self.root
-                g.device = self.device
-                taus.append(list(g.tau) if g.tau is not None
-                            else g.estimate_tau())
+                tau = _saved_tau(path)
+                if tau is None:
+                    g = Gibbs.load(path)
+                    g.root = self.root
+                    g.device = self.device
+                    tau = (list(g.tau) if g.tau is not None
+                           else g.estimate_tau())
+                taus.append(tau)
             except (AllNoiseError, KeyError, ValueError):
                 taus.append([0.0, 0.0, 0.0])
         taus = np.asarray(taus, np.float64).reshape(-1, 3)

@@ -662,15 +662,17 @@ class _Shard:
 class _BucketRun:
     """One bucket's chains, advanced a segment at a time. :meth:`launch`
     launches the next segment of every lane shard (each on its stream, if
-    it has one) and returns without waiting; :meth:`collect` keeps the
-    segment's samples, writes the checkpoint and calls ``checkpoint_cb``.
-    The chain is the same for any segmentation and any interleaving with
-    other buckets: every sweep reseeds from the absolute sweep index and
-    the seed is salted by the bucket's names (and, on a mesh of n > 1 lane
-    shards, by the shard). Its spans (:mod:`basicrta_torch.spans`):
+    it has one) and returns without waiting; :meth:`collect` takes the
+    segment in, launches the next one and only then writes the checkpoint
+    and calls ``checkpoint_cb``, so the file is written while the card
+    runs. The chain is the same for any segmentation and any interleaving
+    with other buckets: every sweep reseeds from the absolute sweep index
+    and the seed is salted by the bucket's names (and, on a mesh of n > 1
+    lane shards, by the shard). Its spans (:mod:`basicrta_torch.spans`):
     ``sampler.segment`` the launch, ``sampler.wait`` the host waiting on
-    the segment's samples, ``sampler.checkpoint`` the state's copy and the
-    file written."""
+    the segment's samples and state, ``sampler.checkpoint`` the file
+    written (counters ``bytes``, and ``behind``: 1, the bucket's next
+    segment being in flight)."""
 
     def __init__(self, batch: ResidueBatch, cfg: GibbsConfig,
                  segment_blocks: int, checkpoint_path: Optional[str],
@@ -818,41 +820,59 @@ class _BucketRun:
         return self.done >= self.total_blocks
 
     def launch(self):
-        """Launch the next segment of every shard; nothing is copied to
-        the host."""
+        """Launch the next segment of every shard, and a CUDA event behind
+        it on each card; nothing is copied to the host."""
         nb = min(self.segment_blocks, self.total_blocks - self.done)
-        outs = []
+        outs, events = [], []
         with spans.span("sampler.segment"):
             for sh in self.shards:
                 with _on_stream(sh.stream):
                     sh.state, W, R = self._step(sh, nb)
                 outs.append((W, R))
-        self._pending = (nb, [W for W, _ in outs], [R for _, R in outs])
+                if sh.device.type == "cuda":
+                    events.append(_record_event(sh))
+        self._pending = (nb, [W for W, _ in outs], [R for _, R in outs],
+                         events)
 
-    def collect(self):
-        """Take the launched segment in: samples, checkpoint, callback."""
-        nb, W, R = self._pending
+    def collect(self) -> list:
+        """Take the launched segment in (its samples, and its state where a
+        checkpoint is kept), launch the bucket's next segment, then write
+        the checkpoint of the segment taken in and call ``checkpoint_cb``
+        with its state. The segment that finishes the bucket writes no
+        checkpoint: :meth:`result` would remove it unread. The kernels
+        allocate a fresh state every launch, so the state taken in stays
+        as it was. Returns the CUDA events of the segment taken in."""
+        nb, W, R, events = self._pending
         self._pending = None
         keep = self.checkpoint_path is not None
         if keep or self.checkpoint_cb is not None:
             with spans.span("sampler.wait"):
                 W, R = self._gather(W), self._gather(R)
+                if keep:
+                    # before the next launch, which the copy would wait on
+                    ck = MixtureState(
+                        self._gather([sh.state.weights
+                                      for sh in self.shards]),
+                        self._gather([sh.state.rates for sh in self.shards]))
+        state = self.state if self.checkpoint_cb is not None else None
         self.Ws.append(W)
         self.Rs.append(R)
         self.done += nb
         self.seg_idx += 1
-        if keep:
-            with spans.span("sampler.checkpoint"):
-                ck = MixtureState(
-                    self._gather([sh.state.weights for sh in self.shards]),
-                    self._gather([sh.state.rates for sh in self.shards]))
-                path = save_checkpoint(self.checkpoint_path, self.batch,
-                                       self.cfg, self.done, self.seg_idx, ck,
-                                       self.Ws, self.Rs, self.ckpt_engine)
-                if spans.recording():
-                    spans.add("bytes", os.path.getsize(path))
+        if not self.finished:
+            self.launch()
+            if keep:
+                with spans.span("sampler.checkpoint"):
+                    path = save_checkpoint(self.checkpoint_path, self.batch,
+                                           self.cfg, self.done, self.seg_idx,
+                                           ck, self.Ws, self.Rs,
+                                           self.ckpt_engine)
+                    if spans.recording():
+                        spans.add("bytes", os.path.getsize(path))
+                        spans.add("behind")
         if self.checkpoint_cb is not None:
-            self.checkpoint_cb(self.seg_idx, self.state, (self.Ws, self.Rs))
+            self.checkpoint_cb(self.seg_idx, state, (self.Ws, self.Rs))
+        return events
 
     def result(self) -> BatchResult:
         """The finished run's samples on the host; removes the checkpoint."""
@@ -867,24 +887,24 @@ class _BucketRun:
 
 def _advance(runs: Sequence[_BucketRun], cfg: GibbsConfig,
              progress_cb) -> None:
-    """Run every bucket to its end, a segment of all buckets at a time:
-    each round launches the segment of every unfinished bucket (and of
-    every lane shard) before it takes any of them in, so buckets and
-    shards on streams of their own share the cards. ``progress_cb`` fires
-    once a round, with the sweeps every bucket has done."""
-    cards = {sh.device for r in runs for sh in r.shards
-             if sh.device.type == "cuda"}
+    """Run every bucket to its end. The first segment of every unfinished
+    bucket (and of every lane shard) is launched before any is taken in,
+    and each bucket's next segment is launched as soon as its last one is
+    taken in, so buckets and shards on streams of their own share the
+    cards and checkpoints are written while they run. ``progress_cb``
+    fires once a round of all buckets, with the sweeps every bucket has
+    taken in."""
+    for r in runs:
+        if not r.finished:
+            r.launch()
     while True:
-        live = [r for r in runs if not r.finished]
+        live = [r for r in runs if r._pending is not None]
         if not live:
             return
-        for r in live:
-            r.launch()
-        for r in live:
-            r.collect()
+        taken = [e for r in live for e in r.collect()]
         if progress_cb is not None:
-            for dev in cards:
-                torch.cuda.synchronize(dev)
+            for event in taken:
+                event.synchronize()
             progress_cb(min(r.done for r in runs) * cfg.g, cfg.niter)
 
 
@@ -900,9 +920,11 @@ def run_batch(batch: ResidueBatch, cfg: GibbsConfig,
         segment_blocks: thinning blocks per kernel launch (checkpoint and
             progress granularity; 100 blocks = 10,000 sweeps by default).
         checkpoint_path: sampler state is saved there after every segment
-            and a matching checkpoint is resumed from; the chain is the
-            same for any segmentation.
-        checkpoint_cb: optional ``f(segment_idx, state, (Ws, Rs))``.
+            but the last, while the next one runs, and a matching
+            checkpoint is resumed from; the chain is the same for any
+            segmentation. A finished run leaves no checkpoint.
+        checkpoint_cb: optional ``f(segment_idx, state, (Ws, Rs))``, after
+            each segment, with the state that segment ended in.
         progress_cb: optional ``f(done_sweeps, total_sweeps)``.
         engine: 'cuda' (the fused kernels, the default), 'torch' (their
             plain versions) or 'collapsed' (the reference collapsed sweep;
@@ -972,10 +994,11 @@ def run_batches(batches: Sequence[ResidueBatch], cfg: GibbsConfig,
     """Run full chains for several buckets, all on the device at once.
 
     On the card each bucket (and each of its lane shards) launches on a
-    CUDA stream of its own, and the current segment of every bucket is
-    launched before any bucket's samples are copied to the host;
-    checkpoints (``checkpoint_paths``, one a bucket) and ``progress_cb``
-    follow the segment of all buckets. Every bucket's result is bitwise
+    CUDA stream of its own, and the first segment of every bucket is
+    launched before any bucket's samples are copied to the host; a
+    bucket's checkpoint (``checkpoint_paths``, one a bucket) is written
+    while its next segment runs, and ``progress_cb`` follows the segment
+    of all buckets. Every bucket's result is bitwise
     that of :func:`run_batch` on it alone, whose other arguments these
     are."""
     engine, device = resolve_engine(engine, device, sharding)

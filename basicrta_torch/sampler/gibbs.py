@@ -183,7 +183,10 @@ class Gibbs:
         return pv[np.searchsorted(self._values, self.times)]
 
     def save(self) -> str:
-        """Persist raw + processed state as NPZ (previous file -> .bak)."""
+        """Persist raw + processed state as NPZ (previous file -> .bak),
+        stored, not deflated: deflating the times (in event order) and the
+        chains takes many times as long as writing them whole (the
+        reference pickles the whole instance uncompressed)."""
         os.makedirs(self.savedir, exist_ok=True)
         path = os.path.join(self.savedir, f"gibbs_{self.cfg.niter}.npz")
         if os.path.exists(path):
@@ -209,7 +212,7 @@ class Gibbs:
                 "ts": self.ts, "cfg": self.cfg.to_json(),
                 "lmode": None if self.processed is None
                 else int(self.processed.lmode)}
-        np.savez_compressed(path, _meta=json.dumps(meta), **arrays)
+        np.savez(path, _meta=json.dumps(meta), **arrays)
         return path
 
     @classmethod

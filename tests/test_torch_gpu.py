@@ -1,7 +1,8 @@
 """Card-only tests of the CUDA kernels: each kernel (K1, K2, the packed
 K3, the PRNG probe K5) against its plain PyTorch version on the same CUDA
-tensors, exact resume, the run_batch engine on packed and mixed buckets,
-batched post-processing on the card, the span recorder's clock against
+tensors, exact resume, checkpoints written behind the next launch, the
+run_batch engine on packed and mixed buckets, batched post-processing on
+the card, the span recorder's clock against
 the profiler's device events and its on/off equality, and launch refusals.
 They skip without a CUDA device.
 
@@ -9,6 +10,8 @@ This file imports no JAX (the card's machine has none); run it there with
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -284,6 +287,58 @@ def test_run_residues_buckets_on_streams_equal_run_batch(dev):
             np.testing.assert_array_equal(got[k][0][int(ch)],
                                           res.mcweights[i])
             np.testing.assert_array_equal(got[k][1][int(ch)], res.mcrates[i])
+
+
+def test_checkpoints_written_behind_the_next_segment_on_the_card(
+        dev, tmp_path):
+    """K2 with a checkpoint written while the next segment runs: the
+    samples bitwise those of one launch with nothing in flight beside it
+    (and of the run without checkpoints), every checkpoint but the last's
+    counted ``behind``, each holding its own segment's state, from which a
+    resume is bitwise the whole run."""
+    from basicrta_torch import spans
+    rng = np.random.default_rng(8)
+    times = {f"R{i}": np.repeat(rng.uniform(0.1, 30.0, n),
+                                rng.integers(1, 30, n))
+             for i, n in enumerate((300, 900))}
+    lanes = {f"{k}#{c}": t for k, t in times.items() for c in range(2)}
+    b = batch.bucket_residues(lanes, ladder="pow2")[-1]
+    cfg = GibbsConfig(ncomp=5, niter=400, g=10, seed=5)
+    whole = batch.run_batch(b, cfg, segment_blocks=40, engine="cuda")
+    bare = batch.run_batch(b, cfg, segment_blocks=8, engine="cuda")
+    ckpt = str(tmp_path / "ck.npz")
+    states = {}
+
+    def keep(seg_idx, state, _):
+        states[seg_idx] = state
+        if os.path.exists(ckpt):
+            os.replace(ckpt, str(tmp_path / f"seg{seg_idx}.npz"))
+
+    spans.drain()
+    spans.enable()
+    try:
+        got = batch.run_batch(b, cfg, segment_blocks=8, engine="cuda",
+                              checkpoint_path=ckpt, checkpoint_cb=keep)
+    finally:
+        spans.disable()
+    marks = [s for s in spans.drain() if s.name == "sampler.checkpoint"]
+    for res in (bare, got):
+        np.testing.assert_array_equal(res.mcweights, whole.mcweights)
+        np.testing.assert_array_equal(res.mcrates, whole.mcrates)
+    assert len(marks) == 4 and all(s.attrs["behind"] == 1 for s in marks)
+    assert sorted(states) == [1, 2, 3, 4, 5]
+    for n in (1, 4):
+        path = str(tmp_path / f"seg{n}.npz")
+        done, _, ck, Ws, _ = batch.load_checkpoint(path, b, cfg,
+                                                   "basicrta_torch-cuda")
+        assert done == 8 * n
+        np.testing.assert_array_equal(
+            ck.weights, states[n].weights[:b.size].cpu().numpy())
+        np.testing.assert_array_equal(Ws[0], whole.mcweights[:, :8 * n])
+        resumed = batch.run_batch(b, cfg, segment_blocks=8, engine="cuda",
+                                  checkpoint_path=path)
+        np.testing.assert_array_equal(resumed.mcweights, whole.mcweights)
+        np.testing.assert_array_equal(resumed.mcrates, whole.mcrates)
 
 
 def test_prng_kernel_matches_plain(dev):

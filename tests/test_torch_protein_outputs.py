@@ -4,7 +4,8 @@ basicrta_torch against the JAX package on the CPU.
 On one results tree (three residues sampled by the port's plain engine):
 tau of every cluster, ``tausout_all.npy``, the convergence table and
 ``diagnostics.npz``, and the b-factor PDB equal the JAX package's on the
-same artifacts. ``gibbs --mode sequential`` gives each residue the tau of
+same artifacts, and the result file, stored without deflating, reads the
+same in both packages. ``gibbs --mode sequential`` gives each residue the tau of
 ``Gibbs(...).run()`` alone; ``--rerun-missing``, ``--rerun-flagged`` (with
 a JAX-written archive) and ``--profile``; the figure families with
 matplotlib, and ``cluster`` with matplotlib blocked still writing every
@@ -147,6 +148,46 @@ def test_estimate_tau_all_equal_jax(tree, label):
     np.testing.assert_array_equal(
         ptau.estimate_tau_all(a.processed, a.cfg.noise_cutoff),
         ta)
+
+
+@pytest.mark.parametrize("label", ["X10", "X20", "X30"])
+def test_result_file_is_stored_and_both_packages_read_it(
+        tree, tmp_path, monkeypatch, label):
+    """``Gibbs.save`` stores every entry of ``gibbs_{niter}.npz`` without
+    deflating it; its keys and arrays are those of a deflated save of the
+    same ``Gibbs``, and the JAX package's ``Gibbs.load`` reads it to the
+    port's arrays."""
+    import zipfile
+    path = _paths(tree)[label]
+    with zipfile.ZipFile(path) as zf:
+        assert {i.compress_type for i in zf.infolist()} == {
+            zipfile.ZIP_STORED}
+    g = Gibbs.load(path)
+    g.root = str(tmp_path)
+    with monkeypatch.context() as m:
+        m.setattr(np, "savez", np.savez_compressed)
+        deflated = g.save()
+    with zipfile.ZipFile(deflated) as zf:
+        assert {i.compress_type for i in zf.infolist()} == {
+            zipfile.ZIP_DEFLATED}
+    with np.load(path) as a, np.load(deflated) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert "tau" in a.files and "proc_data" in a.files
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k])
+    a, j = Gibbs.load(path), JGibbs.load(path)
+    assert (a.residue, a.cutoff, a.ts, a.tau) == (j.residue, j.cutoff,
+                                                  j.ts, j.tau)
+    assert a.cfg.to_json() == j.cfg.to_json()
+    for f in ("times", "mcweights", "mcrates", "parameters", "intervals"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(j, f))
+    assert a.processed.lmode == j.processed.lmode
+    for f in ("labels", "data", "pindicator_values", "presorts"):
+        np.testing.assert_array_equal(getattr(a.processed, f),
+                                      getattr(j.processed, f))
+    for x, y in zip(a.processed.inds, j.processed.inds):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_estimate_tau_all_all_noise_raises(tree):

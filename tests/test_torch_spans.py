@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from basicrta_torch import cli, spans
 from basicrta_torch.config import GibbsConfig
@@ -24,8 +25,19 @@ from basicrta_torch.protein.driver import ParallelGibbs, ProcessProtein
 JOB_SPANS = ("sampler.layout", "sampler.segment", "sampler.wait",
              "sampler.checkpoint", "post.batch", "post.prep", "post.gmm",
              "post.votes", "post.finish", "post.tau", "post.save")
-CFG = GibbsConfig(ncomp=4, niter=200, g=10, burnin=60, n_chains=2,
+CFG = GibbsConfig(ncomp=4, niter=200, g=1, burnin=60, n_chains=2,
                   gmm_n_init=3, seed=7)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Many small eager steps: with torch's intra-op threads, each step
+    waits for threads that the suite's other workers keep busy. One
+    thread here, restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -142,10 +154,13 @@ def test_the_tau_job_records_every_span(jobs):
     by = {}
     for s in got:
         by.setdefault(s.name, []).append(s)
-    # 200 sweeps in segments of 100 blocks of 10: 1 segment a bucket
+    # 200 sweeps in segments of 100 blocks of 1: 2 segments a bucket, a
+    # checkpoint for the first, written while the second runs
     assert len(by["sampler.layout"]) == 1
-    assert len(by["sampler.segment"]) == len(by["sampler.checkpoint"]) == 2
-    assert all(s.attrs["bytes"] > 0 for s in by["sampler.checkpoint"])
+    assert len(by["sampler.segment"]) == 4
+    assert len(by["sampler.checkpoint"]) == 2
+    assert all(s.attrs["bytes"] > 0 and s.attrs["behind"] == 1
+               for s in by["sampler.checkpoint"])
     (gmm,) = by["post.gmm"]
     # at least one Lloyd step and one EM iteration, each read on the host
     assert gmm.attrs["host_reads"] >= 2

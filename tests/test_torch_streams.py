@@ -2,7 +2,8 @@
 ``run_batches``), against each bucket alone (``run_batch``): bitwise the
 same samples on the CPU engine, for the pow2 and the production layout,
 with and without checkpoints, and resumed from checkpoints written
-mid-run. Plus the two host helpers of the redesigned kernels: K3's
+mid-run; each checkpoint written while its bucket's next segment runs,
+holding its own segment, and none for the last. Plus the two host helpers of the redesigned kernels: K3's
 per-slot column ranges and the block's thread count, and the checkpoint
 guard: a checkpoint of another workload, another engine or the JAX
 package is refused (``tests/test_aux.py::TestCheckpointResume``).
@@ -119,6 +120,155 @@ def test_interleaved_buckets_resume_bitwise(tmp_path, protein):
                              progress_cb=lambda d, t: rounds.append(d))
     _assert_same(got, ref)
     assert rounds == [10, 30]
+
+
+def _pipelined(tmp_path, engine, monkeypatch):
+    """A four-segment run of one bucket with a checkpoint and a callback
+    that copies the file on disk at each call, every write recorded, the
+    span recorder on. Returns (bucket, full run, run with checkpoints,
+    {segment: (the callback's state, the copy)}, the segments written,
+    the checkpoint spans)."""
+    from basicrta_torch import spans
+    b = batch.bucket_residues({"A1": _times("pow2")["R0"],
+                               "B2": _times("pow2")["R3"]},
+                              ladder="pow2")[0]
+    cfg = GibbsConfig(ncomp=3, niter=40, g=10, seed=6)
+    full = batch.run_batch(b, cfg, segment_blocks=1, engine=engine,
+                           device="cpu")
+    ckpt = str(tmp_path / "ck.npz")
+    seen, written = {}, []
+    save = batch.save_checkpoint
+
+    def recorded(path, *args):
+        written.append(args[3])                 # seg_idx
+        return save(path, *args)
+
+    def copy(seg_idx, state, _):
+        dst = str(tmp_path / f"seg{seg_idx}.npz")
+        if os.path.exists(ckpt):
+            with open(ckpt, "rb") as f, open(dst, "wb") as g:
+                g.write(f.read())
+        seen[seg_idx] = (state, dst)
+
+    monkeypatch.setattr(batch, "save_checkpoint", recorded)
+    spans.drain()
+    spans.enable()
+    try:
+        got = batch.run_batch(b, cfg, segment_blocks=1, engine=engine,
+                              device="cpu", checkpoint_path=ckpt,
+                              checkpoint_cb=copy)
+    finally:
+        spans.disable()
+    marks = [s for s in spans.drain() if s.name == "sampler.checkpoint"]
+    assert not os.path.exists(ckpt)
+    return b, cfg, full, got, seen, written, marks
+
+
+@pytest.mark.parametrize("engine", ["torch", "collapsed"])
+def test_checkpoint_holds_its_segment_while_the_next_runs(
+        tmp_path, monkeypatch, engine):
+    """Each checkpoint is written after the bucket's next segment was
+    launched, yet holds the state and samples of its own segment: the
+    callback's state, the samples taken in so far, and a resume from it
+    that is bitwise the uninterrupted run. The segment that finishes the
+    run writes none and the run leaves none."""
+    b, cfg, full, got, seen, written, marks = _pipelined(
+        tmp_path, engine, monkeypatch)
+    np.testing.assert_array_equal(got.mcweights, full.mcweights)
+    np.testing.assert_array_equal(got.mcrates, full.mcrates)
+    assert written == [1, 2, 3] and sorted(seen) == [1, 2, 3, 4]
+    tag = f"basicrta_torch-{engine}"
+    for n in (1, 2, 3):
+        state, path = seen[n]
+        done, seg, ck, Ws, Rs = batch.load_checkpoint(path, b, cfg, tag)
+        assert (done, seg) == (n, n)
+        np.testing.assert_array_equal(
+            ck.weights, state.weights[:b.size].cpu().numpy())
+        np.testing.assert_array_equal(
+            ck.rates, state.rates[:b.size].cpu().numpy())
+        np.testing.assert_array_equal(Ws[0], full.mcweights[:, :n])
+        np.testing.assert_array_equal(Rs[0], full.mcrates[:, :n])
+        resumed = batch.run_batch(b, cfg, segment_blocks=1, engine=engine,
+                                  device="cpu", checkpoint_path=path)
+        np.testing.assert_array_equal(resumed.mcweights, full.mcweights)
+        np.testing.assert_array_equal(resumed.mcrates, full.mcrates)
+        assert not os.path.exists(path)
+    # at the last segment's callback the file on disk is still the third
+    done, _, ck, _, _ = batch.load_checkpoint(seen[4][1], b, cfg, tag)
+    assert done == 3
+    assert not np.array_equal(ck.weights,
+                              seen[4][0].weights[:b.size].cpu().numpy())
+
+
+def test_behind_counts_the_checkpoints_written(tmp_path, monkeypatch):
+    """The ``behind`` counter of ``sampler.checkpoint`` is 1 on each
+    checkpoint written, each after its bucket's next segment was
+    launched, and ``bytes`` the file's size."""
+    *_, written, marks = _pipelined(tmp_path, "torch", monkeypatch)
+    assert len(marks) == len(written) == 3
+    assert sum(s.attrs["behind"] for s in marks) == 3
+    assert all(s.attrs["bytes"] > 0 for s in marks)
+
+
+def test_behind_metric_reads_the_counter_and_nothing_without_it():
+    """``checkpoint_behind.residue`` is the mean a job of the ``behind``
+    counts of the window's checkpoints, and None where the checkpoints
+    carry no such counter (a program that writes them in line)."""
+    import time
+    import types
+
+    from basicrta_torch import spans
+    from rtabench import harness
+    from rtabench.tracing import Spans
+    read = harness.metric_reader("checkpoint_behind.residue")
+
+    def run(counted):
+        spans.drain()
+        spans.enable()
+        try:
+            t0 = time.time_ns()
+            for _ in range(3):
+                with spans.span("sampler.checkpoint"):
+                    spans.add("bytes", 10)
+                    if counted:
+                        spans.add("behind")
+            t1 = time.time_ns()
+        finally:
+            spans.disable()
+        r = types.SimpleNamespace(spans=Spans(), trace=None)
+        r.spans.items.append(("job", 0, t0, t1, None))
+        return r
+
+    try:
+        assert read(run(True)) == 3
+        assert read(run(False)) is None
+    finally:
+        spans.drain()
+
+
+def test_interleaved_buckets_write_every_checkpoint_but_the_last(
+        tmp_path, protein, monkeypatch):
+    """Several buckets with checkpoints: each bucket writes a checkpoint
+    for every segment but its last, and the samples are bitwise those of
+    the run without checkpoints."""
+    ladder, times, ref, n_buckets = protein
+    written = []
+    save = batch.save_checkpoint
+
+    def recorded(path, *args):
+        written.append((os.path.basename(path), args[3]))
+        return save(path, *args)
+
+    monkeypatch.setattr(batch, "save_checkpoint", recorded)
+    got = batch.run_residues(times, CFG, n_chains=2, ladder=ladder,
+                             engine="torch", segment_blocks=1,
+                             checkpoint_dir=str(tmp_path))
+    _assert_same(got, ref)
+    assert len(written) == 2 * n_buckets
+    assert sorted(seg for _, seg in written) == [1] * n_buckets + [
+        2] * n_buckets
+    assert len({name for name, _ in written}) == n_buckets
+    assert not os.listdir(tmp_path)
 
 
 def test_run_batches_equals_run_batch_each():
